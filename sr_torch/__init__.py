@@ -1,0 +1,12 @@
+"""sr_torch — the PyTorch/CUDA port of ``sr``, for one NVIDIA H100.
+
+It mirrors ``sr/``'s layout and names, so each module's counterpart sits at
+the same path. It imports torch, numpy and the standard library, never JAX
+or ``sr``. Entry points run on ``device="cuda"`` unless the caller asks for
+the CPU. Every Pallas kernel of ``sr`` on a ported path becomes a CUDA
+kernel under ``sr_torch/kernels/csrc/``, built at first use; a CPU tensor
+takes the kernel's plain PyTorch version instead.
+
+Slice 1 serves EDSR ×4 (float): ``sr_torch.infer.upscale`` and
+``python -m sr_torch.serve``.
+"""
