@@ -74,7 +74,8 @@ def depth_to_space(x: torch.Tensor, r: int,
     applied before the shuffle.
 
     CPU tensors take :func:`depth_to_space_plain`; CUDA tensors launch the
-    kernel, which needs a contiguous float32 or bfloat16 tensor.
+    kernel, which needs a contiguous float32 or bfloat16 tensor with fewer
+    than 2^31 output rows and 2^30 elements in one input row.
     ``depth_to_space.launches`` counts the kernel's launches.
     """
     _check_act(act)
@@ -88,7 +89,11 @@ def depth_to_space(x: torch.Tensor, r: int,
                         f"got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("depth_to_space kernel needs a contiguous NHWC tensor")
-    b, h, w, _ = x.shape
+    b, h, w, cin = x.shape
+    if b * h * r >= 2 ** 31 or w * cin >= 2 ** 30:
+        raise ValueError(f"depth_to_space kernel takes fewer than 2^31 output "
+                         f"rows and 2^30 elements per input row, got "
+                         f"{tuple(x.shape)} r={r}")
     out = torch.empty((b, h * r, w * r, c), dtype=x.dtype, device=x.device)
     lib, fn = _kernel()
     with torch.cuda.device(x.device):

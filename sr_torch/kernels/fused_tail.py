@@ -29,12 +29,12 @@ from sr_torch.utils.precision import no_tf32
 
 
 def extract_affine_conv(tail_fn, in_channels: int, scale_factor: int,
-                        support: int = 7, tol: float = 1e-5,
-                        device: torch.device | str = "cpu"
+                        support: int = 7, tol: float = 1e-5
                         ) -> tuple[np.ndarray, np.ndarray]:
     """Impulse-probe an affine ×r upsampler into (K, b).
 
-    ``tail_fn``: (N, P, P, in_channels) float32 NHWC → (N, rP, rP, C_out).
+    ``tail_fn``: (N, P, P, in_channels) float32 NHWC → (N, rP, rP, C_out),
+    CPU tensors in and out; it may run the tail on another device.
     Returns ``K`` (S, S, in_channels, C_out·r²) float32 (HWIO) and ``b``
     (C_out·r²,) such that ``d2s_r(conv_SAME(y, K) + b) == tail_fn(y)`` in
     the interior. Raises ``ValueError`` if the bias varies, if energy
@@ -43,19 +43,17 @@ def extract_affine_conv(tail_fn, in_channels: int, scale_factor: int,
     """
     with no_tf32(), torch.no_grad():
         return _extract_affine_conv(tail_fn, in_channels, scale_factor,
-                                    support, tol, torch.device(device))
+                                    support, tol)
 
 
-def _extract_affine_conv(tail_fn, in_channels, scale_factor, support, tol,
-                         device):
+def _extract_affine_conv(tail_fn, in_channels, scale_factor, support, tol):
     r = scale_factor
     S = support
     c0 = S // 2
     P = 4 * S  # probe canvas: comfortably larger than the support
     p0 = P // 2
 
-    zeros = torch.zeros((1, P, P, in_channels), dtype=torch.float32,
-                        device=device)
+    zeros = torch.zeros((1, P, P, in_channels), dtype=torch.float32)
     bias_phases = space_to_depth(tail_fn(zeros), r)[0]  # (P, P, C_out·r²)
     b = bias_phases[p0, p0]
     interior = bias_phases[c0:P - c0, c0:P - c0]
@@ -64,9 +62,8 @@ def _extract_affine_conv(tail_fn, in_channels, scale_factor, support, tol,
         raise ValueError("tail is not translation-invariant affine (bias varies)")
 
     # impulse ci sits at (p0, p0) of batch item ci
-    y = torch.zeros((in_channels, P, P, in_channels), dtype=torch.float32,
-                    device=device)
-    ci = torch.arange(in_channels, device=device)
+    y = torch.zeros((in_channels, P, P, in_channels), dtype=torch.float32)
+    ci = torch.arange(in_channels)
     y[ci, p0, p0, ci] = 1.0
     resp = space_to_depth(tail_fn(y), r) - bias_phases  # remove affine offset
     # conv_SAME: z[p,q] = Σ K[dy,dx] y[p+dy-c0, q+dx-c0], so with y = δ at
@@ -87,7 +84,7 @@ def _extract_affine_conv(tail_fn, in_channels, scale_factor, support, tol,
     # (e.g. a ReLU inactive at zero/impulse inputs); hold the composite to
     # the tail on a random dense input.
     gen = torch.Generator(device="cpu").manual_seed(0)
-    y = torch.rand((1, P, P, in_channels), generator=gen).to(device)
+    y = torch.rand((1, P, P, in_channels), generator=gen)
     want = tail_fn(y)
     z = F.conv2d(y.permute(0, 3, 1, 2), K.permute(3, 2, 0, 1),
                  padding=c0).permute(0, 2, 3, 1) + b
@@ -98,7 +95,7 @@ def _extract_affine_conv(tail_fn, in_channels, scale_factor, support, tol,
         raise ValueError(
             f"composite deviates {err:.2e} from the tail on a dense input — "
             "the tail is not affine (activation or norm inside?)")
-    return K.cpu().numpy(), b.cpu().numpy()
+    return K.numpy(), b.numpy()
 
 
 def make_fused_tail_predict(model, support: int = 7):
@@ -106,7 +103,8 @@ def make_fused_tail_predict(model, support: int = 7):
 
     ``model`` exposes ``body``/``tail`` (``sr_torch/models/edsr.py``) and
     holds its weights. Interior-exact against ``model(x)``; see the module
-    docstring for the border band. The probe runs on the model's device.
+    docstring for the border band. The tail runs on the model's device;
+    the probes and the composite's arithmetic stay on the CPU.
     """
     r = model.scale_factor
     device = next(model.parameters()).device
@@ -114,10 +112,9 @@ def make_fused_tail_predict(model, support: int = 7):
     model_f32 = model.clone(torch.float32)
 
     def tail_f32(y):
-        return model_f32.tail(y).to(torch.float32)
+        return model_f32.tail(y.to(device)).to("cpu", torch.float32)
 
-    K, b = extract_affine_conv(tail_f32, model.base_filter, r, support,
-                               device=device)
+    K, b = extract_affine_conv(tail_f32, model.base_filter, r, support)
     dtype = model.dtype
     weight = torch.from_numpy(K).permute(3, 2, 0, 1).to(device, dtype)
     bias = torch.from_numpy(b).to(device, dtype)

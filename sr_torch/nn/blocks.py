@@ -101,37 +101,28 @@ class ResnetBlock(nn.Module):
         self._packed = None
         self._packed_key = None
 
-    def _weights(self):
-        return (self.Conv_0.weight, self.Conv_0.bias,
-                self.Conv_1.weight, self.Conv_1.bias)
-
-    def _pack(self):
-        w1, b1, w2, b2 = pack_weights(*self._weights())
-        return w1.to(self.dtype), b1, w2.to(self.dtype), b2
-
     def packed(self):
         """The (9·C, C) operands and f32 biases for :func:`fused_resblock`,
-        in the block's dtype on the weights' device. Cached on the module;
-        packed again when a weight changes, moves or the dtype changes."""
-        key = (self.dtype, self.Conv_0.weight.device,
-               *(p._version for p in self._weights()))
+        in the block's dtype on the weights' device. Packed on first use and
+        cached; packed again when a weight changes, moves or the dtype
+        changes."""
+        weights = (self.Conv_0.weight, self.Conv_0.bias,
+                   self.Conv_1.weight, self.Conv_1.bias)
+        key = (self.dtype, weights[0].device, *(p._version for p in weights))
         if self._packed_key != key:
             with torch.no_grad():
-                self._packed = self._pack()
+                w1, b1, w2, b2 = pack_weights(*weights)
+                self._packed = (w1.to(self.dtype), b1, w2.to(self.dtype), b2)
             self._packed_key = key
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled():
-            if x.is_cuda:
-                raise NotImplementedError(
-                    "training through ResnetBlock on CUDA " + _LATER
-                    + " (the fused kernel is inference-only); run under "
-                    "torch.inference_mode() or torch.no_grad()")
-            weights = self._pack()  # live weights: differentiable on the CPU
-        else:
-            weights = self.packed()
-        y = fused_resblock(_nhwc(x.to(self.dtype)), *weights,
+            raise NotImplementedError(
+                "training through ResnetBlock " + _LATER + " (the fused "
+                "kernel is inference-only); run under torch.inference_mode() "
+                "or torch.no_grad()")
+        y = fused_resblock(_nhwc(x.to(self.dtype)), *self.packed(),
                            res_scale=self.res_scale)
         return y.permute(0, 3, 1, 2)
 

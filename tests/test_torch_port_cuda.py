@@ -26,17 +26,34 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_depth_to_space_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("b,h,w,c", [(2, 5, 7, 16), (1, 3, 300, 16),
+                                     (2, 4, 9, 3)])
+def test_depth_to_space_kernel_matches_plain(cuda, b, h, w, c):
+    """Exact. (1, 3, 300, 16): an output row longer than one block of
+    threads; C=3: no 16-byte vectors."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         for r in (2, 3, 4):
             for act in (None, "relu"):
-                x = torch.randn((2, 5, 7, 16 * r * r), device=cuda,
+                x = torch.randn((b, h, w, c * r * r), device=cuda,
                                 generator=gen).to(dtype)
                 before = depth_to_space.launches
                 got = depth_to_space(x, r, act)
                 assert depth_to_space.launches == before + 1
                 assert torch.equal(got, depth_to_space_plain(x, r, act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 2 ** 28, 4), (2 ** 30, 1, 1, 4)])
+def test_depth_to_space_kernel_refuses_oversize(cuda, shape):
+    """2^30 elements in one input row, or 2^31 output rows at r=2: past
+    the kernel's 32-bit in-row offsets and its grid. Uninitialised bf16,
+    2 and 8 GiB."""
+    x = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+    before = depth_to_space.launches
+    with pytest.raises(ValueError, match="fewer than 2"):
+        depth_to_space(x, 2)
+    assert depth_to_space.launches == before
 
 
 @pytest.mark.cuda
