@@ -13,14 +13,20 @@ Phases; any failure raises and exits non-zero without the final line:
 2. Build the CUDA kernels from ``sr_torch/kernels/csrc`` into ``build/``.
 3. Hold each kernel against its plain PyTorch version on the card, and time
    kernel, plain version, one library call and the bound at the serving
-   path's shapes (CUDA events, median of 30).
+   path's shapes (CUDA events, median of 30). The int8 conv must equal its
+   plain version exactly, the u8 shuffle too.
 4. Serve EDSR ×4 (16 resblocks × 64 filters, RGB, seeded random weights
    saved in the JAX package's .npz format) through ``sr_torch.infer.upscale``
    and the port's HTTP server: exact and fused tails, bf16 and f32, three
-   image sizes, one of them tiled. Launch counts are zeroed just before and
-   read just after; both kernels must have run.
-5. Throughput of the exact and fused bf16 paths at 128² LR → 512² out, b16,
-   and a torch.profiler breakdown of their device time by kernel.
+   image sizes, one of them tiled. Then the int8 paths (static exact, static
+   fused, dynamic) on the same images and one POST to an int8 service.
+   Launch counts are zeroed just before each of the two runs and read just
+   after; every kernel of a run must have run. Per-forward launch counts,
+   card == CPU (f32 float forward within 1e-3, the static int8 graph bit
+   for bit), and int8 against float interiors.
+5. Throughput of the exact and fused bf16 paths and of the int8-static
+   exact and fused paths at 128² LR → 512² out, b16, and a torch.profiler
+   breakdown of their device time by kernel.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card line, then as
 its last line ``{"ok": true, "device": {...}}``.
@@ -45,7 +51,8 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense, no TF32
+              torch.int8: 1979e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -144,7 +151,13 @@ def phase_kernels(card: str) -> list[dict]:
                           f"depth_to_space differs: {dtype} r={r} act={act} "
                           f"{(b, h, w, c)}")
                     n += 1
-    print(f"[3] depth_to_space == plain on {n} cases (exact)")
+    for r, c in ((4, 3), (2, 64)):  # the fused-quant tail's u8 shuffle
+        x = torch.randint(0, 256, (2, 13, 11, c * r * r), device="cuda",
+                          generator=gen).to(torch.uint8)
+        check(torch.equal(depth_to_space(x, r), depth_to_space_plain(x, r)),
+              f"u8 depth_to_space differs: r={r} c={c}")
+        n += 1
+    print(f"[3] depth_to_space == plain on {n} cases (exact; f32, bf16, u8)")
 
     # fused_resblock: tolerances from f32 summation order over K=576, and
     # about one bf16 ulp at these magnitudes (outputs below 4)
@@ -182,6 +195,20 @@ def phase_kernels(card: str) -> list[dict]:
         print(f"[3] depth_to_space {tuple(x.shape)} r={r} bf16: kernel "
               f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.pixel_shuffle "
               f"{t_l:.4f} ms, bound {bound:.4f} ms (bytes) | {card}")
+        if cin == 48:  # the fused-quant tail shuffles u8
+            xu = torch.randint(0, 256, x.shape, device="cuda",
+                               generator=gen).to(torch.uint8)
+            check(torch.equal(depth_to_space(xu, r),
+                              depth_to_space_plain(xu, r)),
+                  "u8 depth_to_space differs at the tail shape")
+            xuc = xu.permute(0, 3, 1, 2)
+            tu_k = time_ms(lambda: depth_to_space(xu, r))
+            tu_p = time_ms(lambda: depth_to_space_plain(xu, r).contiguous())
+            tu_l = time_ms(lambda: F.pixel_shuffle(xuc, r))
+            bu = 2 * xu.numel() / HBM_BYTES_PER_S * 1e3
+            print(f"[3] depth_to_space {tuple(xu.shape)} r={r} u8: kernel "
+                  f"{tu_k:.4f} ms, plain {tu_p:.4f} ms, F.pixel_shuffle "
+                  f"{tu_l:.4f} ms, bound {bu:.4f} ms (bytes) | {card}")
         if stage == 1:  # the largest shuffle of the exact path
             entries.append(dict(
                 name="depth_to_space", route="cuda",
@@ -222,6 +249,116 @@ def phase_kernels(card: str) -> list[dict]:
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=t_l, shape=list(shape), dtype="bfloat16"))
     return entries
+
+
+#: the int8 path's conv shapes at b16, 128² LR: (name, B, H, W, C, N, k)
+INT8_SHAPES = (
+    ("head", 16, 128, 128, 3, 64, 3),
+    ("body", 16, 128, 128, 64, 64, 3),  # 32 block convs + body_conv
+    ("PS stage 1", 16, 128, 128, 64, 256, 3),
+    ("PS stage 2", 16, 256, 256, 64, 256, 3),
+    ("out conv", 16, 512, 512, 64, 3, 3),
+    ("fused-quant tail", 16, 128, 128, 64, 48, 7),
+)
+
+
+def _int_mm_operands(q_x, q_w):
+    """The same contraction as one (M, K) × (K, N) int8 GEMM: an unfolded
+    (im2col) matrix built beforehand, K and N zero-padded to multiples of
+    8 as ``torch._int_mm`` needs. Built in half precision (exact for
+    int8), then cast."""
+    b, h, w, c = q_x.shape
+    k, n = q_w.shape[0], q_w.shape[-1]
+    cols = F.unfold(q_x.permute(0, 3, 1, 2).half(), k, padding=k // 2)
+    a = cols.transpose(1, 2).reshape(b * h * w, c * k * k)
+    kp, np_ = -(-a.shape[1] // 8) * 8, -(-n // 8) * 8
+    a = F.pad(a, (0, kp - a.shape[1])).to(torch.int8).contiguous()
+    wm = q_w.permute(2, 0, 1, 3).reshape(c * k * k, n).half()
+    wm = F.pad(wm, (0, np_ - n, 0, kp - wm.shape[0])).to(torch.int8)
+    return a, wm.contiguous()
+
+
+def phase_int8_conv(card: str) -> dict:
+    """Kernel 3 on the card: exact against its plain version, the bf16
+    instantiation within tolerance, and times at the int8 path's shapes."""
+    from sr_torch.kernels.int8_conv import (
+        conv_bf16_im2col, conv_bf16_plain, conv_int8_im2col, conv_int8_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def q(shape):
+        return torch.randint(-127, 128, shape, device="cuda",
+                             generator=gen).to(torch.int8)
+
+    cases = [((2, 5, 7, 3), 64, 3), ((2, 17, 9, 64), 64, 3),
+             ((2, 17, 9, 64), 256, 3), ((2, 16, 16, 64), 3, 3),
+             ((2, 13, 11, 64), 48, 7)]
+    for shape, n, k in cases:
+        q_x, q_w = q(shape), q((k, k, shape[-1], n))
+        check(torch.equal(conv_int8_im2col(q_x, q_w),
+                          conv_int8_plain(q_x, q_w)),
+              f"int8_conv differs at {shape} -> {n}, k={k}")
+    sat_x = torch.full((1, 8, 8, 64), 127, dtype=torch.int8, device="cuda")
+    sat_w = torch.full((3, 3, 64, 64), -127, dtype=torch.int8, device="cuda")
+    sat = conv_int8_im2col(sat_x, sat_w)
+    check(torch.equal(sat, conv_int8_plain(sat_x, sat_w))
+          and int(sat.min()) == -9 * 64 * 127 * 127,
+          "int8_conv differs on saturated inputs")
+    print(f"[3] int8_conv == plain on {len(cases) + 1} cases (exact, "
+          "±127 saturation included)")
+    bf_err = 0.0
+    for shape, n, k in cases:
+        x = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn((k, k, shape[-1], n), device="cuda", generator=gen)
+             / (k * k * shape[-1]) ** 0.5).bfloat16()
+        bf_err = max(bf_err, float((conv_bf16_im2col(x, w)
+                                    - conv_bf16_plain(x, w)).abs().max()))
+    print(f"[3] int8_conv bf16 instantiation: max |kernel - plain| "
+          f"{bf_err:.3g} (tol 1e-3)")
+    check(bf_err <= 1e-3, "bf16 conv disagrees")
+
+    entry = None
+    for name, b, h, w, c, n, k in INT8_SHAPES:
+        q_x, q_w = q((b, h, w, c)), q((k, k, c, n))
+        got = conv_int8_im2col(q_x, q_w)
+        err = float((got - conv_int8_plain(q_x, q_w)).abs().max())
+        check(err == 0.0, f"int8_conv differs at the {name} shape")
+        t_k = time_ms(lambda: conv_int8_im2col(q_x, q_w))
+        t_p = time_ms(lambda: conv_int8_plain(q_x, q_w))
+        del got
+        a, wm = _int_mm_operands(q_x, q_w)
+        try:  # a yardstick only: the port never calls it
+            t_l = time_ms(lambda: torch._int_mm(a, wm))
+        except RuntimeError as e:
+            print(f"[3] torch._int_mm refused {tuple(a.shape)} x "
+                  f"{tuple(wm.shape)}: {e}")
+            t_l = None
+        del a, wm
+        xb = q_x.permute(0, 3, 1, 2).bfloat16()  # channels_last bf16
+        kb = q_w.permute(3, 2, 0, 1).bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        t_c = time_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
+        del xb
+        ops = 2 * b * h * w * k * k * c * n
+        nbytes = b * h * w * c + k * k * c * n + 4 * b * h * w * n
+        t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[3] int8_conv {name} {(b, h, w, c)}->{n} k={k}: kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch._int_mm on a "
+              f"prebuilt im2col matrix {t_l} ms (GEMM alone), cuDNN bf16 "
+              f"conv {t_c:.4f} ms, bound {bound:.4f} ms ({by}); max err "
+              f"{err:g} | {card}")
+        if name == "body":
+            entry = dict(
+                name="int8_conv", route="cuda",
+                source="sr_torch/kernels/csrc/int8_conv.cu",
+                replaces="sr/kernels/int8_conv.py:75", launches=None,
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                bound_by=by, library_ms=t_l, shape=[b, h, w, c, n, k],
+                dtype="int8")
+    return entry
 
 
 def _seeded_edsr(dtype: str):
@@ -361,7 +498,116 @@ def phase_serve(entries: list[dict]) -> Path:
                   f"(tol {max_lv} / {mean_lv})")
             worst.append(d.max() <= max_lv and d.mean() <= mean_lv)
     check(all(worst), "fused interior differs from exact")
-    return path
+    return path, outs
+
+
+def phase_int8_serve(path: Path, entry: dict, outs: dict) -> None:
+    """The int8 paths through ``upscale`` and the server: counts zeroed just
+    before, read just after; then per-forward counts, card == CPU for the
+    static int8 graph, and int8 against the f32 exact graph."""
+    from PIL import Image
+
+    from sr_torch.infer import upscale
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+    from sr_torch.kernels.int8_conv import conv_int8_im2col
+    from sr_torch.quant import calibrate_scales, quantized_apply
+    from sr_torch.serve import SRService, serve_background
+    from sr_torch.utils.checkpoint import load_params
+    from sr_torch.utils.interop import from_jax_params
+
+    rng = np.random.default_rng(0)
+    sizes = ((128, 128), (96, 160), (400, 260))  # the float path's images
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
+    modes = (("static", True), ("static", False), ("dynamic", False))
+
+    # ---- the int8 path: counts zeroed just before, read just after ----
+    conv_int8_im2col.launches = 0
+    depth_to_space.launches = 0
+    fused_resblock.launches = 0
+    q_outs = {}
+    for quantize, fused in modes:
+        for img in imgs:
+            t0 = time.perf_counter()
+            out = upscale(img, "EDSR", str(path), scale_factor=4,
+                          fused=fused, quantize=quantize)
+            ms = (time.perf_counter() - t0) * 1e3
+            h, w = img.shape[:2]
+            check(out.shape == (4 * h, 4 * w, 3) and out.dtype == np.uint8,
+                  f"int8 upscale output {out.shape} {out.dtype}")
+            q_outs[quantize, fused, img.shape] = out
+            print(f"[4] upscale {h}x{w} int8 {quantize} "
+                  f"{'fused' if fused else 'exact'}: {out.shape} uint8 in "
+                  f"{ms:.1f} ms (host clock, first call loads/calibrates)")
+    service = SRService(model_name="EDSR", params=str(path), scale_factor=4,
+                        quantize="static")
+    httpd, port = serve_background(service)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("GET", "/info")
+    info = json.loads(conn.getresponse().read())
+    check(info["quantize"] == "static", f"/info: {info}")
+    conn.request("POST", "/upscale", body=_png(imgs[0]),
+                 headers={"Content-Type": "image/png"})
+    resp = conn.getresponse()
+    body = resp.read()
+    check(resp.status == 200, f"POST /upscale int8: {resp.status}")
+    got = np.asarray(Image.open(io.BytesIO(body)))
+    check(np.array_equal(got, q_outs["static", True, imgs[0].shape]),
+          "served int8 PNG differs from a direct upscale")
+    conn.close()
+    httpd.shutdown()
+    httpd.server_close()
+    launches = {"int8_conv": conv_int8_im2col.launches,
+                "depth_to_space": depth_to_space.launches,
+                "fused_resblock": fused_resblock.launches}
+    print(f"[4] POST /upscale to a quantize='static' service == direct "
+          f"upscale; /info {info}")
+    print(f"[4] int8-path launches: {launches}")
+    entry["launches"] = launches["int8_conv"]
+    check(entry["launches"] > 0, "int8_conv never launched on the int8 path")
+    check(launches["depth_to_space"] > 0 and launches["fused_resblock"] == 0,
+          "the int8 path must shuffle with the kernel and run no float "
+          "resblock")
+
+    # ---- per-forward counts, after calibration (the functions are cached)
+    for (quantize, fused), want in zip(modes, ((35, 1), (37, 2), (37, 2))):
+        c0, d0, r0 = (conv_int8_im2col.launches, depth_to_space.launches,
+                      fused_resblock.launches)
+        upscale(imgs[0], "EDSR", str(path), fused=fused, quantize=quantize)
+        got = (conv_int8_im2col.launches - c0, depth_to_space.launches - d0,
+               fused_resblock.launches - r0)
+        print(f"[4] one int8 {quantize} {'fused' if fused else 'exact'} "
+              f"forward: int8_conv +{got[0]}, depth_to_space +{got[1]}, "
+              f"fused_resblock +{got[2]}")
+        check(got == (*want, 0), "unexpected int8 launches per forward")
+
+    # ---- static int8 graph, card == CPU bit for bit, one scales dict ----
+    params, _ = load_params(str(path))
+    _, cpu_model = _seeded_edsr("bfloat16")
+    from_jax_params(cpu_model, params)
+    _, gpu_model = _seeded_edsr("bfloat16")
+    gpu_model = from_jax_params(gpu_model, params).cuda()
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 64, 64, 3)).astype(np.float32))
+    scales = calibrate_scales(gpu_model, x.cuda(), headroom=1.25)
+    on_card = quantized_apply(gpu_model, x.cuda(), scales).cpu()
+    on_cpu = quantized_apply(cpu_model, x, scales)
+    n_diff = int((on_card != on_cpu).sum())
+    print(f"[4] static int8 64x64 forward, card vs CPU with one scales "
+          f"dict: {n_diff} of {on_cpu.numel()} outputs differ (want 0)")
+    check(n_diff == 0 and torch.equal(on_card, on_cpu),
+          "card int8 forward differs from the CPU's")
+
+    # ---- int8 against the f32 exact graph, interiors ----
+    m = 3 * 4
+    for (quantize, fused) in modes:
+        for img in imgs:
+            a = q_outs[quantize, fused, img.shape].astype(np.int32)
+            b = outs["float32", False, img.shape].astype(np.int32)
+            d = np.abs(a - b)[m:-m, m:-m]
+            print(f"[4] int8 {quantize} {'fused' if fused else 'exact'} vs "
+                  f"f32 exact interior {img.shape[:2]}: max {d.max()} u8 "
+                  f"levels, mean {d.mean():.4f} (tol mean 4)")
+            check(d.mean() <= 4, "int8 interior too far from f32")
 
 
 def phase_throughput(path: Path, card: str) -> None:
@@ -380,10 +626,19 @@ def phase_throughput(path: Path, card: str) -> None:
             ms = time_ms(lambda: fn(x), n=20)
             print(f"[5] EDSR x4 {name} bf16 b16 128->512: {ms:.3f} ms/batch, "
                   f"{mp / ms * 1e3:.1f} MP/s | {card}")
-            profile_batches(lambda: fn(x), name)
+            profile_batches(lambda: fn(x), name, card)
+        for fused in (False, True):
+            fn = make_serving_predict(model, fused, quantize="static",
+                                      calib_headroom=1.25)
+            fn.calibrate([x])  # one batch, before timing
+            name = f"int8-static {'fused' if fused else 'exact'}"
+            ms = time_ms(lambda: fn(x), n=20)
+            print(f"[5] EDSR x4 {name} b16 128->512: {ms:.3f} ms/batch, "
+                  f"{mp / ms * 1e3:.1f} MP/s | {card}")
+            profile_batches(lambda: fn(x), name, card)
 
 
-def profile_batches(fn, name: str, n: int = 5) -> None:
+def profile_batches(fn, name: str, card: str, n: int = 5) -> None:
     """Device time by kernel over ``n`` batches, and the device's busy
     share of the window from the first to the last kernel (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -418,8 +673,8 @@ def profile_batches(fn, name: str, n: int = 5) -> None:
     total = sum(by_name.values())
     print(f"[5] profile {name}: device busy {busy / n / 1e3:.3f} ms/batch of "
           f"a {window / n / 1e3:.3f} ms/batch window "
-          f"({100 * busy / window:.1f}% busy)")
-    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+          f"({100 * busy / window:.1f}% busy) | {card}")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[5]   {us / n / 1e3:8.3f} ms/batch {100 * us / total:5.1f}%  "
               f"{kname[:150]}")
 
@@ -433,7 +688,10 @@ def main() -> int:
     card = phase_toolchain()
     phase_build()
     entries = phase_kernels(card)
-    path = phase_serve(entries)
+    int8_entry = phase_int8_conv(card)
+    path, outs = phase_serve(entries)
+    phase_int8_serve(path, int8_entry, outs)
+    entries.append(int8_entry)
     phase_throughput(path, card)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -7,6 +7,6 @@ the CPU. Every Pallas kernel of ``sr`` on a ported path becomes a CUDA
 kernel under ``sr_torch/kernels/csrc/``, built at first use; a CPU tensor
 takes the kernel's plain PyTorch version instead.
 
-Slice 1 serves EDSR ×4 (float): ``sr_torch.infer.upscale`` and
-``python -m sr_torch.serve``.
+Slices 1 and 2 serve EDSR ×4 in float and int8: ``sr_torch.infer.upscale``
+(``quantize=...``) and ``python -m sr_torch.serve`` (``--quantize``).
 """

@@ -1,18 +1,19 @@
 """One-call inference API: upscale an image with a trained model.
 
-Port of ``sr/infer.py`` for float serving of 3-channel models that take the
-raw LR image (EDSR): it loads exported params (the JAX package's ``.npz``
-format), routes big images through halo-tiled inference, optionally uses
-the fused affine tail, and can quantize the output to uint8 on the device.
+Port of ``sr/infer.py`` for 3-channel models that take the raw LR image
+(EDSR), in float or int8: it loads exported params (the JAX package's
+``.npz`` format), routes big images through halo-tiled inference,
+optionally uses the fused affine tail, runs every conv as int8
+(``quantize``), and can quantize the output to uint8 on the device.
 
     from sr_torch.infer import upscale
     sr_img = upscale(img_u8, "EDSR", "results/EDSR_x4/EDSR_params.npz",
-                     scale_factor=4)
+                     scale_factor=4, quantize="static", fused=True)
 
 Every entry point runs on ``device="cuda"`` unless the caller asks for the
 CPU. 1-channel and pre-upsample models (bicubic input, chroma merge),
-``quantize``, ``self_ensemble`` and ``net_scale`` land in later port
-slices and raise ``NotImplementedError``.
+``self_ensemble`` and ``net_scale`` land in later port slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ import numpy as np
 import torch
 
 from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
-from sr_torch.kernels.fused_tail import make_fused_tail_predict
+from sr_torch.kernels.fused_tail import (
+    make_fused_tail_predict, make_fused_tail_predict_quant)
 from sr_torch.models.registry import get_spec
-from sr_torch.quant import to_u8
+from sr_torch.quant import make_quantized_predict, to_u8
 from sr_torch.utils.checkpoint import load_params
 from sr_torch.utils.config import SRConfig
 from sr_torch.utils.interop import from_jax_params
@@ -45,13 +47,30 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def make_serving_predict(model, fused: bool, quantize: bool | str = False,
-                         output_u8: bool = False):
+                         calib_headroom: float = 1.0,
+                         output_u8: bool = False, calib_batches=None):
     """The serving-variant policy (``sr/infer.py:make_serving_predict``):
-    ``fused`` collapses the affine tail (EDSR), else the exact graph runs;
-    ``output_u8`` quantizes the output to uint8 on the device. The returned
-    function takes and returns NHWC tensors on the model's device."""
+    ``fused`` collapses the affine tail (EDSR), else the exact graph runs.
+    ``quantize`` runs every conv as int8: ``True``/``"dynamic"`` with
+    per-sample activation scales on the exact graph; ``"static"`` with
+    scales calibrated on the first batch (or ``calib_batches``), composed
+    with the collapsed tail when ``fused``. ``output_u8`` quantizes the
+    output to uint8 on the device. The returned function takes and returns
+    NHWC tensors on the model's device."""
     if quantize:
-        raise NotImplementedError(f"quantize={quantize!r} {_LATER}")
+        if quantize not in (True, "dynamic", "static"):
+            raise ValueError(
+                f"quantize must be False/True/'dynamic'/'static', "
+                f"got {quantize!r}")
+        mode = "static" if quantize == "static" else "dynamic"
+        if mode == "static" and fused:
+            return make_fused_tail_predict_quant(
+                model, calib_headroom=calib_headroom, output_u8=output_u8,
+                calib_batches=calib_batches)
+        return make_quantized_predict(model, mode,
+                                      calib_headroom=calib_headroom,
+                                      output_u8=output_u8,
+                                      calib_batches=calib_batches)
     fn = make_fused_tail_predict(model) if fused else model
     if output_u8:
         return lambda x: to_u8(fn(x))
@@ -61,7 +80,8 @@ def make_serving_predict(model, fused: bool, quantize: bool | str = False,
 @functools.lru_cache(maxsize=8)
 def _load(model_name: str, params_path: str, params_mtime: float,
           scale_factor: int, num_channels: int | None, dtype: str,
-          fused: bool, output_u8: bool, device: torch.device):
+          fused: bool, quantize: bool | str, output_u8: bool,
+          calib_headroom: float, device: torch.device):
     # params_mtime keys the cache so a re-exported file at the same path
     # is picked up instead of serving stale weights
     del params_mtime
@@ -79,7 +99,11 @@ def _load(model_name: str, params_path: str, params_mtime: float,
         raise NotImplementedError(f"batch-norm models {_LATER}")
     from_jax_params(model, params)
     model = model.to(device).eval()
-    return make_serving_predict(model, fused, output_u8=output_u8)
+    # a static predict keeps its calibration in the cached function, so
+    # later requests reuse the first request's scales, as in sr.infer
+    return make_serving_predict(model, fused, quantize,
+                                calib_headroom=calib_headroom,
+                                output_u8=output_u8)
 
 
 def upscale(
@@ -93,6 +117,7 @@ def upscale(
     fused: bool = False,
     quantize: bool | str = False,
     output_u8: bool = True,
+    calib_headroom: float = 1.25,
     self_ensemble: bool = False,
     net_scale: int | None = None,
     device: str | torch.device = "cuda",
@@ -102,18 +127,22 @@ def upscale(
     ``tile``: route images larger than this through exact halo-tiled
     inference (None = always full-image). ``fused``: use the collapsed
     affine tail (interior-identical, faster; ``sr_torch/kernels/
-    fused_tail.py``). ``output_u8`` (default on): quantize to uint8 on the
-    device, bit-equal to the host conversion. A 3-channel model takes the
-    image in whatever color space it was trained in. ``device`` defaults
-    to the card; pass ``"cpu"`` for the plain PyTorch versions of the
-    kernels.
+    fused_tail.py``). ``quantize``: int8 convs (``sr_torch/quant.py``):
+    ``True``/``"dynamic"`` or ``"static"``, which calibrates activation
+    scales on the first image (the first chunk of tiles) and composes with
+    ``fused=True``; ``calib_headroom`` multiplies those scales, a clip
+    margin for inputs hotter than the first. ``output_u8`` (default on):
+    quantize to uint8 on the device, bit-equal to the host conversion. A
+    3-channel model takes the image in whatever color space it was trained
+    in. ``device`` defaults to the card; pass ``"cpu"`` for the plain
+    PyTorch versions of the kernels.
     """
-    if quantize or self_ensemble or net_scale:
-        raise NotImplementedError(
-            f"quantize / self_ensemble / net_scale {_LATER}")
+    if self_ensemble or net_scale:
+        raise NotImplementedError(f"self_ensemble / net_scale {_LATER}")
     device = resolve_device(device)
     fn = _load(model_name, params_path, os.path.getmtime(params_path),
-               scale_factor, num_channels, dtype, fused, output_u8, device)
+               scale_factor, num_channels, dtype, fused, quantize, output_u8,
+               calib_headroom, device)
     if img.ndim == 2:
         img = img[:, :, None]
     if img.shape[-1] == 1:

@@ -3,15 +3,17 @@
 //   out[b, h*r + i, w*r + j, c] = act(x[b, h, w, c*r*r + i*r + j])
 //
 // Replaces sr/kernels/depth_to_space.py:_d2s_kernel (the pl.pallas_call at
-// line 73), which streamed one LR row per grid step through VMEM.
+// line 73), which streamed one LR row per grid step through VMEM. Types:
+// float32, bfloat16, and uint8 for the fused-quant tail, which quantizes to
+// u8 before the shuffle so that the shuffle moves a quarter of the bytes.
 //
 // Bound: bytes. The shuffle reads every input element once and writes every
 // output element once, so the least time is 2 * numel * itemsize over the
 // card's memory rate (3.35 TB/s on an H100 SXM). It does no arithmetic
 // beyond the optional ReLU.
 //
-// Design: one thread per 16-byte output vector (8 bf16 or 4 f32 channels of
-// one output pixel; one element when C does not divide into vectors), indexed
+// Design: one thread per 16-byte output vector (16 u8, 8 bf16 or 4 f32
+// channels of one output pixel; one element when C does not divide into vectors), indexed
 // by the OUTPUT so that a warp writes one contiguous run of memory. Each
 // thread gathers its channels from the input with stride r*r; neighbouring
 // threads read neighbouring input rows, which L2 serves. The grid's x walks
@@ -39,6 +41,8 @@ __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 __device__ __forceinline__ __nv_bfloat16 relu(__nv_bfloat16 v) {
   return __bfloat162float(v) < 0.f ? __float2bfloat16(0.f) : v;
 }
+
+__device__ __forceinline__ uint8_t relu(uint8_t v) { return v; }
 
 template <typename T, int VEC, bool RELU>
 __global__ void d2s_kernel(const T* __restrict__ x, T* __restrict__ out,
@@ -112,7 +116,7 @@ cudaError_t dispatch(const void* x, void* out, int64_t B, int64_t H,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. C is the OUTPUT channel count; the input
+// dtype: 0 = float32, 1 = bfloat16, 2 = uint8. C is the OUTPUT channel count; the input
 // has C * r * r channels. Returns a cudaError_t; cudaErrorInvalidValue when
 // B * H * r reaches 2^31 or W * C * r * r reaches 2^30.
 extern "C" int sr_depth_to_space(const void* x, void* out, int64_t B,
@@ -125,6 +129,9 @@ extern "C" int sr_depth_to_space(const void* x, void* out, int64_t B,
   if (dtype == 1) {
     return (int)dispatch<__nv_bfloat16>(x, out, B, H, W, C, r, relu_on != 0,
                                         s);
+  }
+  if (dtype == 2) {
+    return (int)dispatch<uint8_t>(x, out, B, H, W, C, r, relu_on != 0, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,9 @@ upsampling of EDSR's ``PSBlock``s and of the fused affine tail:
 
 The tensor's device picks the path: a CPU tensor goes through
 :func:`depth_to_space_plain`; a CUDA tensor launches the hand-written kernel
-in ``csrc/depth_to_space.cu`` (float32 or bfloat16) or raises. Nothing falls
-back from the kernel to the plain version.
+in ``csrc/depth_to_space.cu`` (float32, bfloat16, or uint8 for the
+fused-quant tail's u8 output) or raises. Nothing falls back from the kernel
+to the plain version.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from sr_torch.kernels import _build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
 def _check_act(act: str | None) -> None:
@@ -74,8 +75,8 @@ def depth_to_space(x: torch.Tensor, r: int,
     applied before the shuffle.
 
     CPU tensors take :func:`depth_to_space_plain`; CUDA tensors launch the
-    kernel, which needs a contiguous float32 or bfloat16 tensor with fewer
-    than 2^31 output rows and 2^30 elements in one input row.
+    kernel, which needs a contiguous float32, bfloat16 or uint8 tensor with
+    fewer than 2^31 output rows and 2^30 elements in one input row.
     ``depth_to_space.launches`` counts the kernel's launches.
     """
     _check_act(act)
@@ -85,8 +86,8 @@ def depth_to_space(x: torch.Tensor, r: int,
         raise ValueError(f"depth_to_space runs on cpu or cuda, not {x.device}")
     c = _out_channels(x, r)
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"depth_to_space kernel takes float32/bfloat16, "
-                        f"got {x.dtype}")
+        raise TypeError(f"depth_to_space kernel takes float32/bfloat16/"
+                        f"uint8, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("depth_to_space kernel needs a contiguous NHWC tensor")
     b, h, w, cin = x.shape

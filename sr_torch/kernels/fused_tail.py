@@ -1,6 +1,7 @@
 """Collapse an affine upsampling tail into one conv + one pixel shuffle.
 
-Port of ``sr/kernels/fused_tail.py`` (float path). EDSR's tail —
+Port of ``sr/kernels/fused_tail.py``: the float path and the static-int8
+path (:func:`make_fused_tail_predict_quant`). EDSR's tail —
 [conv64→256, d2s₂, conv64→256, d2s₂, conv64→3] — has no activations, so it
 is affine and translation-equivariant and factors as
 
@@ -25,6 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from sr_torch.kernels.depth_to_space import depth_to_space, space_to_depth
+from sr_torch.kernels.int8_conv import conv_int8_im2col
+from sr_torch.nn.intercept import intercept_convs, site_keys
+from sr_torch.quant import (
+    _EPS, _run_sites, _sites, calibrate_scales_batches, calibrated_once,
+    to_u8)
 from sr_torch.utils.precision import no_tf32
 
 
@@ -98,6 +104,19 @@ def _extract_affine_conv(tail_fn, in_channels, scale_factor, support, tol):
     return K.numpy(), b.numpy()
 
 
+def _composite(model, support: int):
+    """(K, b) of ``model``'s tail, probed on a float32 clone (bf16 rounding
+    would fail the superposition check) that runs on the model's device."""
+    device = next(model.parameters()).device
+    model_f32 = model.clone(torch.float32)
+
+    def tail_f32(y):
+        return model_f32.tail(y.to(device)).to("cpu", torch.float32)
+
+    return extract_affine_conv(tail_f32, model.base_filter,
+                               model.scale_factor, support)
+
+
 def make_fused_tail_predict(model, support: int = 7):
     """NHWC forward of an EDSR-style ``model`` with its tail collapsed.
 
@@ -108,13 +127,7 @@ def make_fused_tail_predict(model, support: int = 7):
     """
     r = model.scale_factor
     device = next(model.parameters()).device
-    # probe a float32 clone: bf16 rounding would fail the superposition check
-    model_f32 = model.clone(torch.float32)
-
-    def tail_f32(y):
-        return model_f32.tail(y.to(device)).to("cpu", torch.float32)
-
-    K, b = extract_affine_conv(tail_f32, model.base_filter, r, support)
+    K, b = _composite(model, support)
     dtype = model.dtype
     weight = torch.from_numpy(K).permute(3, 2, 0, 1).to(device, dtype)
     bias = torch.from_numpy(b).to(device, dtype)
@@ -126,4 +139,94 @@ def make_fused_tail_predict(model, support: int = 7):
                      padding=pad)
         return depth_to_space(z.permute(0, 2, 3, 1).contiguous(), r)
 
+    return predict
+
+
+class _Found(Exception):
+    pass
+
+
+def _first_tail_conv_site(model) -> str | None:
+    """Site key of the tail's first conv: its calibrated input scale is the
+    body output's. The probe stops the tail at its first conv, before any
+    arithmetic."""
+    keys = site_keys(model)
+    found: list[str] = []
+
+    def probe(conv, x):
+        found.append(keys[conv])
+        raise _Found
+
+    device = next(model.parameters()).device
+    try:
+        with torch.inference_mode(), intercept_convs(probe):
+            model.tail(torch.zeros((1, 1, 1, model.base_filter),
+                                   device=device))
+    except _Found:
+        pass
+    return found[0] if found else None
+
+
+def make_fused_tail_predict_quant(model, support: int = 7,
+                                  calib_headroom: float = 1.0,
+                                  output_u8: bool = False,
+                                  calib_batches=None):
+    """Fused affine tail + static-int8 body, NHWC in and out
+    (``sr/kernels/fused_tail.py:make_fused_tail_predict_quant``).
+
+    The body's convs run int8 with calibrated scales (per input channel);
+    the collapsed tail conv runs int8 too, with a per-output-channel
+    composite kernel and the calibrated body-output scale. Calibration
+    happens on the first batch, or up front on ``calib_batches``;
+    ``.calibrate(batches)`` calibrates eagerly (no-op once calibrated).
+    Interior-exact up to the int8 grid; the border band of
+    :func:`make_fused_tail_predict` applies. With ``output_u8`` the output
+    is quantized to u8 before the shuffle, so the shuffle moves u8.
+    """
+    r = model.scale_factor
+    device = next(model.parameters()).device
+    K, b = _composite(model, support)
+    b_t = torch.from_numpy(b).to(device)
+
+    def build(calib):
+        scales = calibrate_scales_batches(model, calib,
+                                          headroom=calib_headroom)
+        site = _first_tail_conv_site(model)
+        if site is not None and site in scales:
+            s_h = scales[site]  # body output == first tail conv input
+        else:  # one extra float body forward per calibration batch
+            with torch.inference_mode():
+                amax = max(float(model.body(z).to(torch.float32).abs().max())
+                           for z in calib)
+            s_h = max(amax / 127.0, _EPS)
+        if np.ndim(s_h) == 1:  # per channel: fold into K (see int8_conv)
+            s_h = np.maximum(s_h, _EPS)
+            Kf = K * np.asarray(s_h)[None, None, :, None]
+        else:
+            Kf = K * float(s_h)
+        s_K = np.maximum(np.abs(Kf).max(axis=(0, 1, 2)) / 127.0, _EPS)
+        qK = torch.from_numpy(np.clip(np.round(Kf / s_K), -127, 127)
+                              .astype(np.int8)).to(device)
+        s_out = torch.from_numpy(np.asarray(s_K, np.float32)).to(device)
+        inv_s_h = torch.from_numpy(
+            np.asarray(1.0 / np.asarray(s_h, np.float32), np.float32)
+        ).to(device)
+        sites = _sites(model, scales)
+
+        def fn(x):
+            h = _run_sites(model, sites, x, "body")
+            with torch.inference_mode():
+                # the JAX package multiplies by 1/s_h here, not divides
+                q_h = torch.clamp(torch.round(h.to(torch.float32) * inv_s_h),
+                                  -127, 127).to(torch.int8)
+                z = conv_int8_im2col(q_h, qK).to(torch.float32) * s_out + b_t
+                if output_u8:
+                    return depth_to_space(to_u8(z), r)
+                return depth_to_space(z.to(h.dtype), r)
+
+        return fn
+
+    predict = calibrated_once(build)
+    if calib_batches is not None:  # corpus calibration, up front
+        predict.calibrate(calib_batches)
     return predict

@@ -16,6 +16,11 @@ in both packages.
 * ``PSBlock`` calls :func:`depth_to_space` for the shuffle.
 * Other convs are ``F.conv2d``: the JAX package left them to XLA, outside
   any Pallas kernel.
+* Every conv goes through :func:`_apply_conv`, which first offers it to the
+  active interceptor (``sr_torch/nn/intercept.py``), as flax's
+  ``intercept_methods`` sees each ``nn.Conv`` call of the JAX blocks. While
+  one is active, ``ResnetBlock`` runs its two convs one by one, so int8
+  serving and calibration see every conv.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch import nn
 
 from sr_torch.kernels.depth_to_space import depth_to_space
 from sr_torch.kernels.fused_resblock import fused_resblock, pack_weights
+from sr_torch.nn import intercept
 from sr_torch.nn.init import lecun_normal_
 
 _LATER = "lands in a later port slice"
@@ -52,6 +58,13 @@ def _conv(in_features: int, features: int, kernel_size: int, stride: int,
 
 
 def _apply_conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    # the interceptor takes x before the cast, as flax's interceptor sees
+    # nn.Conv's argument before nn.Conv casts it to its dtype
+    fn = intercept.active()
+    if fn is not None:
+        y = fn(conv, x)
+        if y is not None:
+            return y
     bias = None if conv.bias is None else conv.bias.to(dtype)
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias,
                     conv.stride, conv.padding)
@@ -122,6 +135,13 @@ class ResnetBlock(nn.Module):
                 "training through ResnetBlock " + _LATER + " (the fused "
                 "kernel is inference-only); run under torch.inference_mode() "
                 "or torch.no_grad()")
+        if intercept.active() is not None:
+            # conv → relu → conv, + residual (sr/nn/blocks.py:ResnetBlock)
+            h = torch.relu(_apply_conv(self.Conv_0, x, self.dtype))
+            h = _apply_conv(self.Conv_1, h, self.dtype)
+            if self.res_scale != 1.0:
+                h = h * torch.tensor(self.res_scale, dtype=h.dtype)
+            return x + h
         y = fused_resblock(_nhwc(x.to(self.dtype)), *self.packed(),
                            res_scale=self.res_scale)
         return y.permute(0, 3, 1, 2)

@@ -1,12 +1,46 @@
-"""Serving-output quantization (``sr/quant.py:to_u8``).
+"""Int8 post-training quantization for serving, and ``to_u8``.
 
-The int8 static and dynamic modes of ``sr/quant.py``, with the int8 conv
-kernel under them, land in the next port slice.
+Port of ``sr/quant.py`` for the port's models (convs only). Every conv of a
+model runs as s8 × s8 → s32 through :func:`conv_int8_im2col` (the CUDA
+kernel on the card, its exact plain version on the CPU), then one float32
+rescale and the bias:
+
+* **Weights**: per-output-channel symmetric int8 (:func:`quantize_kernel`).
+* **Activations**: per-sample symmetric int8 with a dynamic scale
+  (:func:`quantize_activation`), or a static scale calibrated on real
+  inputs (:func:`calibrate_scales`): per input channel by default, folded
+  into the weights so that the dequantize stays one per-output-channel
+  multiply, or one per-tensor float.
+* **Accumulation**: exact int32, then ``acc.float() * (s_x * s_w)``, then
+  ``+ bias``, then the cast to the conv input's dtype, each its own
+  rounding, in the JAX package's order. Given the same scales, the port's
+  output equals ``sr.quant.quantized_apply`` bit for bit.
+
+The int8 graph keeps the input's dtype: the image enters as float32, so
+every activation of an int8 forward is float32 whatever the model's dtype,
+as in the JAX package. Calibration runs the float graph in the model's
+dtype and records each conv's input before the conv casts it.
+
+Mechanism: ``sr_torch.nn.intercept`` offers each conv of the blocks to an
+interceptor, the counterpart of ``flax.linen.intercept_methods``. Grouped,
+strided, dilated or even-sized convs and deconvs belong to no port model
+yet and raise ``NotImplementedError``; nothing falls back to a float conv.
 """
 
 from __future__ import annotations
 
+import threading
+from typing import Any
+
+import numpy as np
 import torch
+from torch import nn
+
+from sr_torch.kernels.int8_conv import conv_int8_im2col
+from sr_torch.nn.intercept import intercept_convs, site_keys
+
+_EPS = 1e-12
+_LATER = "lands in a later port slice"
 
 
 def to_u8(y: torch.Tensor) -> torch.Tensor:
@@ -17,3 +51,247 @@ def to_u8(y: torch.Tensor) -> torch.Tensor:
     the host against float32."""
     return torch.clamp(torch.round(y.to(torch.float32) * 255.0),
                        0, 255).to(torch.uint8)
+
+
+def quantize_kernel(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8: HWIO (k, k, cin, cout) →
+    (int8 kernel, float32 scale[cout])."""
+    k32 = kernel.to(torch.float32)
+    s = torch.clamp_min(k32.abs().amax(dim=(0, 1, 2)) / 127.0, _EPS)
+    q = torch.clamp(torch.round(k32 / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample symmetric int8 with a dynamic scale, reduced over every
+    axis but the batch (shape (B, 1, …, 1)): one image's range never
+    coarsens another's grid under micro-batching."""
+    x32 = x.to(torch.float32)
+    s = x32.abs().amax(dim=tuple(range(1, x32.dim())), keepdim=True) / 127.0
+    s = torch.clamp_min(s, _EPS)
+    q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_activation_static(x: torch.Tensor, scale
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with a static (calibrated) scale: a per-tensor float
+    or a per-channel ``(C,)`` vector over the last axis (NHWC), as numbers
+    or as a float32 tensor on ``x``'s device. Values out of range saturate
+    at ±127."""
+    if not isinstance(scale, torch.Tensor):
+        scale = torch.as_tensor(np.asarray(scale, np.float32),
+                                device=x.device)
+    s = torch.clamp_min(scale, _EPS)
+    q = torch.clamp(torch.round(x.to(torch.float32) / s),
+                    -127, 127).to(torch.int8)
+    return q, s
+
+
+def _check_site(conv: nn.Module) -> None:
+    if not isinstance(conv, nn.Conv2d):
+        raise NotImplementedError(
+            f"int8 {type(conv).__name__} (int8_deconv) {_LATER}")
+    k = conv.kernel_size
+    if (k[0] != k[1] or k[0] % 2 == 0 or conv.stride != (1, 1)
+            or conv.dilation != (1, 1) or conv.groups != 1
+            or conv.padding != (k[0] // 2, k[0] // 2)
+            or conv.padding_mode != "zeros"):
+        raise NotImplementedError(
+            f"int8 conv with kernel {k}, stride {conv.stride}, dilation "
+            f"{conv.dilation}, groups {conv.groups}, padding "
+            f"{conv.padding} {_LATER}; the port's int8 conv takes odd square "
+            "kernels, SAME padding, stride 1, no groups")
+
+
+class _Int8Site:
+    """One conv's int8 operands, quantized once on the weights' device (the
+    JAX package folds them into the executable at trace time): the int8
+    HWIO kernel, its per-output-channel scales, the float32 bias, and for a
+    static site the activation scale and the dequantize multiplier."""
+
+    def __init__(self, conv: nn.Conv2d, static_scale=None):
+        _check_site(conv)
+        with torch.no_grad():
+            kernel = conv.weight.detach().permute(2, 3, 1, 0)  # HWIO
+            dev = kernel.device
+            self.s_act = None  # dynamic
+            if static_scale is not None and np.ndim(static_scale) == 1:
+                # q_x[c] ≈ x[c]/s_c against W[.., c, ..]·s_c keeps the
+                # product, so the dequantize stays per output channel
+                s_c = torch.from_numpy(np.maximum(static_scale, _EPS)
+                                       .astype(np.float32)).to(dev)
+                kernel = kernel.to(torch.float32) * s_c[None, None, :, None]
+                self.s_act = torch.clamp_min(s_c, _EPS)
+            elif static_scale is not None:
+                self.s_act = torch.clamp_min(torch.tensor(
+                    static_scale, dtype=torch.float32, device=dev), _EPS)
+            q_w, self.s_w = quantize_kernel(kernel)
+            self.q_w = q_w.contiguous()
+            if self.s_act is not None:
+                # s_x * s_w; a folded per-channel scale leaves s_x = 1
+                self.dequant = (self.s_w if self.s_act.dim()
+                                else self.s_act * self.s_w)
+            self.bias = (None if conv.bias is None
+                         else conv.bias.detach().to(torch.float32))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW-logical ``x`` (channels_last memory) → the conv's output
+        in ``x``'s dtype, laid out the same way."""
+        xh = x.permute(0, 2, 3, 1)  # NHWC
+        if self.s_act is not None:
+            q_x, _ = quantize_activation_static(xh, self.s_act)
+            dequant = self.dequant
+        else:
+            q_x, s_x = quantize_activation(xh)
+            dequant = s_x * self.s_w
+        acc = conv_int8_im2col(q_x.contiguous(), self.q_w)
+        y = acc.to(torch.float32) * dequant
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
+def int8_conv(x: torch.Tensor, conv: nn.Conv2d,
+              static_scale=None) -> torch.Tensor:
+    """Run ``conv`` on NCHW-logical ``x`` as s8 × s8 → s32 with a float32
+    rescale (``sr/quant.py:int8_conv``). ``static_scale``: a calibrated
+    per-tensor float, or a per-input-channel ``(C,)`` vector folded into
+    the weight quantization; ``None`` = dynamic per-sample scale."""
+    return _Int8Site(conv, static_scale)(x)
+
+
+def _sites(model: nn.Module,
+           scales: dict | None) -> dict[nn.Conv2d, _Int8Site]:
+    """Every conv's int8 operands; a site missing from ``scales`` (or all,
+    for ``None``) runs with dynamic scales."""
+    scales = scales or {}
+    return {conv: _Int8Site(conv, scales.get(key))
+            for conv, key in site_keys(model).items()}
+
+
+def _run_sites(model, sites, x, method=None):
+    """``model(x)`` or ``getattr(model, method)(x)`` with each conv
+    running through its int8 site."""
+    fn = model if method is None else getattr(model, method)
+    with torch.inference_mode(), intercept_convs(
+            lambda conv, inp: sites[conv](inp)):
+        return fn(x)
+
+
+def quantized_apply(model: nn.Module, x: torch.Tensor,
+                    scales: dict | None = None, method: str | None = None):
+    """``model(x)`` (or ``getattr(model, method)(x)``) with every conv
+    running int8. ``scales``: per-site static activation scales from
+    :func:`calibrate_scales`; sites absent from the dict use the dynamic
+    per-sample scale (``None`` = fully dynamic)."""
+    return _run_sites(model, _sites(model, scales), x, method)
+
+
+def calibrate_scales(model: nn.Module, x: torch.Tensor,
+                     headroom: float = 1.0,
+                     per_channel: bool = True) -> dict[str, Any]:
+    """One float forward (in the model's dtype) that records each conv's
+    input amax; returns ``{flax path: scale}`` for the static int8 path.
+    A site visited twice keeps the max. ``headroom`` multiplies every
+    scale. ``per_channel`` (default): a per-input-channel ``(C,)`` float32
+    vector, else one float."""
+    keys = site_keys(model)
+    captured: dict[str, torch.Tensor] = {}
+
+    def record(conv, inp):
+        a32 = inp.detach().to(torch.float32).abs()
+        amax = a32.amax(dim=(0, 2, 3)) if per_channel else a32.amax()
+        k = keys[conv]
+        captured[k] = (torch.maximum(captured[k], amax) if k in captured
+                       else amax)
+        return None  # the float conv runs
+
+    with torch.inference_mode(), intercept_convs(record):
+        model(x)
+    if not captured:
+        return {}
+    # one device → host copy for every site
+    names = list(captured)
+    flat = torch.cat([captured[k].reshape(-1) for k in names]).cpu().numpy()
+    scales: dict[str, Any] = {}
+    pos = 0
+    for k in names:
+        n = captured[k].numel()
+        v = flat[pos:pos + n] * (headroom / 127.0)
+        pos += n
+        scales[k] = (np.maximum(v, _EPS) if per_channel
+                     else max(float(v[0]), _EPS))
+    return scales
+
+
+def calibrate_scales_batches(model: nn.Module, batches,
+                             headroom: float = 1.0) -> dict[str, Any]:
+    """:func:`calibrate_scales` over an iterable of batches, keeping each
+    site's max."""
+    out: dict[str, Any] = {}
+    for x in batches:
+        s = calibrate_scales(model, x, headroom)
+        for k, v in s.items():
+            out[k] = np.maximum(out[k], v) if k in out else v
+    if not out:
+        raise ValueError("calibrate_scales_batches: empty batch iterable")
+    return out
+
+
+def make_quantized_predict(model: nn.Module, mode: str = "dynamic",
+                           calib_headroom: float = 1.0,
+                           output_u8: bool = False, calib_batches=None):
+    """Serving forward (NHWC in, NHWC out) with int8 convs; the weights are
+    quantized once, when the function is built (dynamic) or calibrated
+    (static).
+
+    ``mode``: ``"dynamic"`` — per-sample activation scales computed on the
+    device each call; ``"static"`` — scales calibrated once, on the first
+    batch the function sees (one extra float forward) or up front on
+    ``calib_batches``; ``.calibrate(batches)`` calibrates eagerly (no-op
+    once calibrated). Inputs hotter than the calibration saturate at the
+    int8 grid's edge.
+    """
+    if mode not in ("dynamic", "static"):
+        raise ValueError(f"unknown quantization mode: {mode!r}")
+
+    def post(y):
+        return to_u8(y) if output_u8 else y
+
+    def _make(scales):
+        sites = _sites(model, scales)
+        return lambda x: post(_run_sites(model, sites, x))
+
+    if mode == "dynamic":
+        return _make(None)
+    predict = calibrated_once(lambda batches: _make(calibrate_scales_batches(
+        model, batches, headroom=calib_headroom)))
+    if calib_batches is not None:
+        predict.calibrate(calib_batches)
+    return predict
+
+
+def calibrated_once(build):
+    """``predict(x)`` that builds its function from calibration batches
+    once: from the first batch it sees, or eagerly through
+    ``predict.calibrate(batches)`` (a no-op once built). ``build(batches)``
+    returns the function. A lock covers the build, since the server calls
+    from handler threads."""
+    state: dict[str, Any] = {}
+    lock = threading.Lock()
+
+    def predict(x):
+        if "fn" not in state:
+            with lock:
+                if "fn" not in state:
+                    state["fn"] = build([x])
+        return state["fn"](x)
+
+    def calibrate(batches) -> None:
+        with lock:
+            if "fn" not in state:
+                state["fn"] = build(list(batches))
+
+    predict.calibrate = calibrate
+    return predict

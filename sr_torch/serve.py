@@ -2,8 +2,8 @@
 
 Port of ``sr/serve.py``'s model mode: ``--model_name --params`` serves any
 input size through :func:`sr_torch.infer.upscale` (fused tail, halo
-tiling) on ``--device`` (the card by default). Artifact mode and its
-micro-batcher land with the export slice.
+tiling, int8 with ``--quantize``) on ``--device`` (the card by default).
+Artifact mode and its micro-batcher land with the export slice.
 
 Endpoints:
   GET  /healthz          -> {"ok": true}
@@ -14,6 +14,7 @@ Endpoints:
 
 Usage:
   python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --port 8000
+  python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --quantize static
 """
 
 from __future__ import annotations
@@ -91,6 +92,7 @@ class SRService:
     def __init__(self, model_name=None, params=None, artifact=None,
                  scale_factor: int | None = None, fused: bool = True,
                  num_channels: int | None = None,
+                 quantize: bool | str = False, calib_headroom: float = 1.25,
                  max_inflight: int = 16, device: str = "cuda"):
         if artifact is not None:
             raise NotImplementedError(
@@ -103,6 +105,8 @@ class SRService:
         self.scale_factor = 4 if scale_factor is None else scale_factor
         self.fused = fused
         self.num_channels = num_channels
+        self.quantize = quantize
+        self.calib_headroom = calib_headroom
         self.device = resolve_device(device)
         self.stats = ServeStats()
         self.max_body_bytes = 64 << 20
@@ -117,6 +121,7 @@ class SRService:
             "model_name": self.model_name,
             "scale_factor": self.scale_factor,
             "fused": self.fused,
+            "quantize": self.quantize,
             "device": str(self.device),
             "limits": {"max_inflight": self.max_inflight,
                        "max_body_bytes": self.max_body_bytes},
@@ -127,6 +132,8 @@ class SRService:
         return upscale(img, self.model_name, self.params,
                        scale_factor=self.scale_factor,
                        num_channels=self.num_channels, fused=self.fused,
+                       quantize=self.quantize,
+                       calib_headroom=self.calib_headroom,
                        device=self.device)
 
     def upscale_bytes(self, data: bytes) -> bytes:
@@ -248,6 +255,14 @@ def main(argv=None) -> int:
     p.add_argument("--num_channels", type=int, default=None)
     p.add_argument("--no_fused", action="store_true",
                    help="serve the exact graph instead of the fast tail")
+    p.add_argument("--quantize", nargs="?", const="dynamic", default=False,
+                   choices=["dynamic", "static"],
+                   help="int8 convs: 'static' calibrates activation scales "
+                        "on the first request (bare flag = dynamic)")
+    p.add_argument("--calib_headroom", type=float, default=1.25,
+                   help="scale headroom for --quantize static's "
+                        "first-request calibration (clip margin for "
+                        "hotter later inputs)")
     p.add_argument("--max_inflight", type=int, default=16,
                    help="admission bound: concurrent requests allowed to "
                         "buffer bodies / run inference; excess get 429")
@@ -263,6 +278,7 @@ def main(argv=None) -> int:
         model_name=a.model_name, params=a.params,
         scale_factor=a.scale_factor, fused=not a.no_fused,
         num_channels=a.num_channels,
+        quantize=a.quantize, calib_headroom=a.calib_headroom,
         max_inflight=a.max_inflight, device=a.device,
     )
     httpd = make_server(service, a.port, a.host)

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 
-def _flax_path(torch_name: str) -> tuple[str, ...]:
+def flax_path(torch_name: str) -> tuple[str, ...]:
     """``blocks.0.Conv_0`` → ``("blocks_0", "Conv_0")``."""
     out: list[str] = []
     for part in torch_name.split("."):
@@ -28,7 +28,7 @@ def _flax_path(torch_name: str) -> tuple[str, ...]:
 def _convs(model: nn.Module):
     for name, m in model.named_modules():
         if isinstance(m, nn.Conv2d):
-            yield _flax_path(name), m
+            yield flax_path(name), m
 
 
 def _leaf_paths(tree: dict, prefix=()) -> set[tuple[str, ...]]:

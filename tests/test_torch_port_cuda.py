@@ -14,6 +14,8 @@ from sr_torch.kernels.depth_to_space import (
     depth_to_space, depth_to_space_plain)
 from sr_torch.kernels.fused_resblock import (
     fused_resblock, fused_resblock_plain)
+from sr_torch.kernels.int8_conv import (
+    conv_bf16_im2col, conv_bf16_plain, conv_int8_im2col, conv_int8_plain)
 
 torch.set_num_threads(1)
 
@@ -81,3 +83,78 @@ def test_fused_resblock_kernel_rejects_unsupported(cuda):
     b = torch.zeros(24, device=cuda)
     with pytest.raises(ValueError, match="C in"):
         fused_resblock(x, w, b, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,n,k", [
+    (2, 5, 7, 3, 64, 3),     # EDSR's head: C=3, one K step
+    (2, 17, 9, 64, 64, 3),   # body: ragged tiles in H and W
+    (2, 17, 9, 64, 256, 3),  # PS conv: four N tiles
+    (2, 16, 16, 64, 3, 3),   # out conv: N=3
+    (2, 13, 11, 64, 48, 7),  # the fused-quant tail's composite conv
+    (1, 9, 20, 3, 3, 5),     # C=3 and N=3 together, k=5
+    (1, 6, 6, 40, 10, 1),    # k=1, C not a whole chunk
+])
+def test_int8_conv_kernel_matches_plain(cuda, b, h, w, c, n, k):
+    """Exact: int32 accumulation of int8 products."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 1000 + c + n)
+    q_x = torch.randint(-127, 128, (b, h, w, c), device=cuda,
+                        generator=gen).to(torch.int8)
+    q_w = torch.randint(-127, 128, (k, k, c, n), device=cuda,
+                        generator=gen).to(torch.int8)
+    before = conv_int8_im2col.launches
+    got = conv_int8_im2col(q_x, q_w)
+    assert conv_int8_im2col.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (b, h, w, n)
+    assert torch.equal(got, conv_int8_plain(q_x, q_w))
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_saturated_inputs_exact(cuda):
+    """±127 everywhere at C=64: the accumulator reaches 9·64·127²."""
+    q_x = torch.full((1, 8, 8, 64), 127, dtype=torch.int8, device=cuda)
+    q_w = torch.full((3, 3, 64, 16), -127, dtype=torch.int8, device=cuda)
+    got = conv_int8_im2col(q_x, q_w)
+    assert int(got.min()) == -9 * 64 * 127 * 127
+    assert torch.equal(got, conv_int8_plain(q_x, q_w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,k", [(64, 64, 3), (3, 64, 3), (64, 48, 7)])
+def test_bf16_conv_kernel_matches_plain(cuda, c, n, k):
+    """Exact bf16 products summed in f32 in another order: 1e-3 at
+    outputs of magnitude ~10."""
+    gen = torch.Generator(device=cuda).manual_seed(c + n + k)
+    x = torch.randn((2, 13, 11, c), device=cuda,
+                    generator=gen).to(torch.bfloat16)
+    w = (torch.randn((k, k, c, n), device=cuda, generator=gen)
+         / (k * k * c) ** 0.5).to(torch.bfloat16)
+    before = conv_bf16_im2col.launches
+    got = conv_bf16_im2col(x, w)
+    assert conv_bf16_im2col.launches == before + 1
+    assert got.dtype == torch.float32
+    assert float((got - conv_bf16_plain(x, w)).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_depth_to_space_kernel_moves_uint8_exactly(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for c in (3, 16):
+        x = torch.randint(0, 256, (2, 7, 5, c * 16), device=cuda,
+                          generator=gen).to(torch.uint8)
+        assert torch.equal(depth_to_space(x, 4), depth_to_space_plain(x, 4))
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_refuses_bad_operands(cuda):
+    q_x = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=cuda)
+    before = conv_int8_im2col.launches
+    with pytest.raises(ValueError, match="odd square"):
+        conv_int8_im2col(q_x, torch.zeros((2, 2, 16, 8), dtype=torch.int8,
+                                          device=cuda))
+    with pytest.raises(ValueError, match="C_in"):
+        conv_int8_im2col(q_x, torch.zeros((3, 3, 8, 8), dtype=torch.int8,
+                                          device=cuda))
+    with pytest.raises(TypeError, match="int8"):
+        conv_int8_im2col(q_x.float(), torch.zeros((3, 3, 16, 8), device=cuda))
+    assert conv_int8_im2col.launches == before

@@ -98,12 +98,15 @@ def test_upscale_defaults_to_the_card(edsr_params):
 
 def test_upscale_refuses_what_a_later_slice_brings(edsr_params):
     with pytest.raises(NotImplementedError, match="later port slice"):
-        upscale(_img(3), "EDSR", edsr_params, quantize="static",
+        upscale(_img(3), "EDSR", edsr_params, self_ensemble=True,
                 device="cpu")
     with pytest.raises(NotImplementedError, match="later port slice"):
         upscale(_img(3), "EDSR", edsr_params, num_channels=1, device="cpu")
     with pytest.raises(NotImplementedError, match="later port slice"):
-        make_serving_predict(Net(3, 16, 1, 4), fused=False, quantize=True)
+        upscale(_img(3), "EDSR", edsr_params, scale_factor=2, net_scale=4,
+                device="cpu")
+    with pytest.raises(ValueError, match="quantize must be"):
+        make_serving_predict(Net(3, 16, 1, 4), fused=False, quantize="int4")
 
 
 def test_server_model_mode_roundtrip(edsr_params):
