@@ -13,7 +13,8 @@ Phases; any failure raises and exits non-zero without the final line:
 2. Build the CUDA kernels from ``sr_torch/kernels/csrc`` into ``build/``.
 3. Hold each kernel against its plain PyTorch version on the card, and time
    kernel, plain version, one library call and the bound at the serving
-   path's shapes (CUDA events, median of 30). The int8 conv must equal its
+   path's shapes (CUDA events, median of 30). One wgmma product must match
+   a plain matmul; the int8 conv (raw and fused entries) must equal its
    plain version exactly, the u8 shuffle too.
 4. Serve EDSR ×4 (16 resblocks × 64 filters, RGB, seeded random weights
    saved in the JAX package's .npz format) through ``sr_torch.infer.upscale``
@@ -21,12 +22,14 @@ Phases; any failure raises and exits non-zero without the final line:
    image sizes, one of them tiled. Then the int8 paths (static exact, static
    fused, dynamic) on the same images and one POST to an int8 service.
    Launch counts are zeroed just before each of the two runs and read just
-   after; every kernel of a run must have run. Per-forward launch counts,
+   after; every kernel of a run must have run (the int8 paths through the
+   fused int8 entry). Per-forward launch counts,
    card == CPU (f32 float forward within 1e-3, the static int8 graph bit
    for bit), and int8 against float interiors.
 5. Throughput of the exact and fused bf16 paths and of the int8-static
    exact and fused paths at 128² LR → 512² out, b16, and a torch.profiler
-   breakdown of their device time by kernel.
+   breakdown of their device time by kernel; the int8 profiles must show
+   no quantize pass (its ``round`` kernel).
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card line, then as
 its last line ``{"ok": true, "device": {...}}``.
@@ -127,13 +130,32 @@ def _resblock_operands(shape, dtype, gen):
     return x, w1, b1, w2, b2
 
 
+def _kernel_operands(ops):
+    """The resblock kernel's operands: bf16 weights in the wgmma layout,
+    packed once as ResnetBlock.packed() caches them; f32 as they are."""
+    from sr_torch.kernels.fused_resblock import pack_wgmma_weights
+
+    x, w1, b1, w2, b2 = ops
+    if x.dtype == torch.bfloat16:
+        w1, w2 = pack_wgmma_weights(w1), pack_wgmma_weights(w2)
+    return x, w1, b1, w2, b2
+
+
 def phase_kernels(card: str) -> list[dict]:
     from sr_torch.kernels.depth_to_space import (
         depth_to_space, depth_to_space_plain)
     from sr_torch.kernels.fused_resblock import (
-        fused_resblock, fused_resblock_plain)
+        fused_resblock, fused_resblock_plain, wgmma_matmul)
+    from sr_torch.utils.precision import no_tf32
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # one wgmma product first: the resblock's bf16 body is built on it
+    a, b = (torch.randn((64, 64), device="cuda", generator=gen).div(8)
+            .bfloat16() for _ in range(2))
+    mm_err = float((wgmma_matmul(a, b) - a.float() @ b.float()).abs().max())
+    print(f"[3] wgmma m64n64k16 x4 product vs plain matmul: max err "
+          f"{mm_err:.3g} (tol 1e-4)")
+    check(mm_err <= 1e-4, "wgmma product disagrees with a plain matmul")
     # depth_to_space: exact equality, odd H and W included
     n, d2s_err = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -166,7 +188,7 @@ def phase_kernels(card: str) -> list[dict]:
         for shape in ((16, 128, 128, 64), (2, 37, 53, 64), (2, 24, 40, 32)):
             for rs in (1.0, 0.1):
                 ops = _resblock_operands(shape, dtype, gen)
-                got = fused_resblock(*ops, res_scale=rs)
+                got = fused_resblock(*_kernel_operands(ops), res_scale=rs)
                 want = fused_resblock_plain(*ops, res_scale=rs)
                 torch.cuda.synchronize()
                 err = float((got.float() - want.float()).abs().max())
@@ -221,24 +243,33 @@ def phase_kernels(card: str) -> list[dict]:
     # fused_resblock at EDSR's body shape
     for dtype in (torch.bfloat16, torch.float32):
         shape = (16, 128, 128, 64)
-        x, w1, b1, w2, b2 = _resblock_operands(shape, dtype, gen)
+        ops = _resblock_operands(shape, dtype, gen)
+        x, w1, b1, w2, b2 = ops
         c = shape[-1]
-        t_k = time_ms(lambda: fused_resblock(x, w1, b1, w2, b2))
+        kops = _kernel_operands(ops)
+        t_k = time_ms(lambda: fused_resblock(*kops))
         t_p = time_ms(lambda: fused_resblock_plain(x, w1, b1, w2, b2))
         xc = x.permute(0, 3, 1, 2)
         k1, k2 = (w.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last) for w in (w1, w2))
         lb1, lb2 = b1.to(dtype), b2.to(dtype)
-        t_l = time_ms(lambda: xc + F.conv2d(
-            F.relu(F.conv2d(xc, k1, lb1, padding=1)), k2, lb2, padding=1))
+        def library():
+            return xc + F.conv2d(F.relu(F.conv2d(xc, k1, lb1, padding=1)),
+                                 k2, lb2, padding=1)
+
+        t_l = time_ms(library)  # PyTorch's default: TF32 for f32 convs
+        with no_tf32():
+            t_l32 = time_ms(library)
         flops = 2 * 2 * x.numel() * 9 * c
         nbytes = (2 * x.numel() + 2 * 9 * c * c) * x.element_size() + 2 * c * 4
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
+        tf32 = (f" (TF32 on); TF32 off {t_l32:.4f} ms"
+                if dtype == torch.float32 else "")
         print(f"[3] fused_resblock {shape} {str(dtype)[6:]}: kernel "
               f"{t_k:.4f} ms, plain {t_p:.4f} ms, conv-relu-conv-add "
-              f"{t_l:.4f} ms, bound {bound:.4f} ms "
+              f"{t_l:.4f} ms{tf32}, bound {bound:.4f} ms "
               f"({'operations' if t_ops >= t_bytes else 'bytes'}) | {card}")
         if dtype == torch.bfloat16:
             entries.append(dict(
@@ -248,6 +279,10 @@ def phase_kernels(card: str) -> list[dict]:
                 max_abs_err=main_err, ms=t_k, plain_ms=t_p, bound_ms=bound,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=t_l, shape=list(shape), dtype="bfloat16"))
+        else:  # the f32 body's numbers ride on the same entry
+            entries[-1].update(f32_ms=t_k, f32_plain_ms=t_p,
+                               f32_bound_ms=bound, f32_library_ms=t_l,
+                               f32_library_ms_tf32_off=t_l32)
     return entries
 
 
@@ -278,11 +313,43 @@ def _int_mm_operands(q_x, q_w):
     return a, wm.contiguous()
 
 
+def _fused_operands(gen, shape, n, mode):
+    """The fused int8 entry's operands as the int8 sites make them: f32
+    input with ±127 saturation and .5 ties (exact at a power-of-two
+    per-tensor scale, within a few ulps at per-channel scales that are not
+    powers of two), a per-tensor, per-channel or per-sample scale, the
+    dequantize table and a bias."""
+    b, h, w, c = shape
+    x = torch.randn(shape, device="cuda", generator=gen) * 2
+    s_w = torch.rand(n, device="cuda", generator=gen) * 1e-3 + 1e-4
+    if mode == "per_tensor":
+        scale = torch.tensor(2.0 ** -4, device="cuda")
+        dequant = scale * s_w
+    elif mode == "per_channel":
+        # not powers of two: x / s lands within a few ulps of .5 ties
+        scale = torch.rand(c, device="cuda", generator=gen) * 0.05 + 0.01
+        dequant = s_w
+    else:
+        scale = torch.clamp_min(
+            x.abs().amax(dim=(1, 2, 3), keepdim=True) / 127.0, 1e-12)
+        dequant = scale * s_w
+    if mode != "dynamic":
+        x[:, 0] = ((torch.arange(w * c, device="cuda").reshape(w, c) % 41
+                    - 20) + 0.5) * scale
+        x[:, -1, 0] = 300.0 * scale
+    bias = torch.randn(n, device="cuda", generator=gen)
+    return x.contiguous(), scale, dequant, bias
+
+
 def phase_int8_conv(card: str) -> dict:
-    """Kernel 3 on the card: exact against its plain version, the bf16
-    instantiation within tolerance, and times at the int8 path's shapes."""
+    """Kernel 3 on the card: the raw entry exact against its plain version,
+    the bf16 instantiation within tolerance, the fused entry (quantize on
+    load, dequantize and bias on store) bit for bit against its plain
+    version, and times at the int8 path's shapes."""
     from sr_torch.kernels.int8_conv import (
-        conv_bf16_im2col, conv_bf16_plain, conv_int8_im2col, conv_int8_plain)
+        conv_bf16_im2col, conv_bf16_plain, conv_int8_fused,
+        conv_int8_fused_plain, conv_int8_im2col, conv_int8_plain,
+        pack_weights)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
 
@@ -304,8 +371,34 @@ def phase_int8_conv(card: str) -> dict:
     check(torch.equal(sat, conv_int8_plain(sat_x, sat_w))
           and int(sat.min()) == -9 * 64 * 127 * 127,
           "int8_conv differs on saturated inputs")
-    print(f"[3] int8_conv == plain on {len(cases) + 1} cases (exact, "
-          "±127 saturation included)")
+    print(f"[3] int8_conv raw entry == plain on {len(cases) + 1} cases "
+          "(exact, ±127 saturation included)")
+    n_fused = 0
+    for shape, n, k in cases:
+        q_w = q((k, k, shape[-1], n))
+        packed = pack_weights(q_w)
+        for mode in ("per_tensor", "per_channel", "dynamic"):
+            x, scale, dequant, bias = _fused_operands(gen, shape, n, mode)
+            for b_ in (bias, None):
+                got = conv_int8_fused(x, q_w, scale, dequant, b_,
+                                      packed=packed)
+                want = conv_int8_fused_plain(x, q_w, scale, dequant, b_)
+                check(torch.equal(got, want),
+                      f"fused int8 conv differs: {shape} -> {n}, k={k}, "
+                      f"{mode}, bias={b_ is not None}")
+                n_fused += 1
+        inv = 1.0 / (torch.rand(shape[-1], device="cuda", generator=gen)
+                     * 0.05 + 0.01)
+        check(torch.equal(
+            conv_int8_fused(x, q_w, inv, dequant, bias, reciprocal=True,
+                            packed=packed),
+            conv_int8_fused_plain(x, q_w, inv, dequant, bias,
+                                  reciprocal=True)),
+            f"fused int8 conv (reciprocal scale) differs at {shape}")
+        n_fused += 1
+    print(f"[3] int8_conv fused entry == plain on {n_fused} cases (bit for "
+          "bit; per-tensor, per-channel, per-sample and reciprocal scales, "
+          ".5 ties, ±127 saturation, with and without bias)")
     bf_err = 0.0
     for shape, n, k in cases:
         x = torch.randn(shape, device="cuda", generator=gen).bfloat16()
@@ -319,13 +412,49 @@ def phase_int8_conv(card: str) -> dict:
 
     entry = None
     for name, b, h, w, c, n, k in INT8_SHAPES:
-        q_x, q_w = q((b, h, w, c)), q((k, k, c, n))
-        got = conv_int8_im2col(q_x, q_w)
-        err = float((got - conv_int8_plain(q_x, q_w)).abs().max())
-        check(err == 0.0, f"int8_conv differs at the {name} shape")
-        t_k = time_ms(lambda: conv_int8_im2col(q_x, q_w))
-        t_p = time_ms(lambda: conv_int8_plain(q_x, q_w))
+        q_w = q((k, k, c, n))
+        packed = pack_weights(q_w)  # once, as the int8 sites pack it
+        # bit for bit at the path's shapes: the per-sample (dynamic) scale
+        # with its (B, 1, 1, N) dequantize table; the per-channel scale (as
+        # timed); at the tail, the fused-quant tail's reciprocal scale
+        x, scale, dequant, bias = _fused_operands(gen, (b, h, w, c), n,
+                                                  "dynamic")
+        check(torch.equal(
+            conv_int8_fused(x, q_w, scale, dequant, bias, packed=packed),
+            conv_int8_fused_plain(x, q_w, scale, dequant, bias)),
+            f"fused int8 conv (per-sample scale) differs at the {name} shape")
+        x, scale, dequant, bias = _fused_operands(gen, (b, h, w, c), n,
+                                                  "per_channel")
+        if k == 7:  # the fused-quant tail multiplies by a per-channel 1/s
+            inv = 127.0 / x.abs().amax(dim=(0, 1, 2))
+            check(torch.equal(
+                conv_int8_fused(x, q_w, inv, dequant, bias, reciprocal=True,
+                                packed=packed),
+                conv_int8_fused_plain(x, q_w, inv, dequant, bias,
+                                      reciprocal=True)),
+                f"fused int8 conv (reciprocal scale) differs at the {name} "
+                "shape")
+        got = conv_int8_fused(x, q_w, scale, dequant, bias, packed=packed)
+        err = float((got - conv_int8_fused_plain(x, q_w, scale, dequant,
+                                                 bias)).abs().max())
+        check(err == 0.0, f"fused int8 conv differs at the {name} shape")
         del got
+        q_x = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        check(torch.equal(conv_int8_im2col(q_x, q_w),
+                          conv_int8_plain(q_x, q_w)),
+              f"int8_conv differs at the {name} shape")
+        t_k = time_ms(lambda: conv_int8_fused(x, q_w, scale, dequant, bias,
+                                              packed=packed))
+        t_p = time_ms(lambda: conv_int8_fused_plain(x, q_w, scale, dequant,
+                                                    bias))
+        t_raw = time_ms(lambda: conv_int8_im2col(q_x, q_w))
+
+        def former():  # the raw kernel inside the passes it replaced
+            qq = torch.clamp(torch.round(x / scale), -127, 127).to(
+                torch.int8)
+            return conv_int8_im2col(qq, q_w).to(torch.float32) * dequant + bias
+
+        t_f = time_ms(former)
         a, wm = _int_mm_operands(q_x, q_w)
         try:  # a yardstick only: the port never calls it
             t_l = time_ms(lambda: torch._int_mm(a, wm))
@@ -334,22 +463,28 @@ def phase_int8_conv(card: str) -> dict:
                   f"{tuple(wm.shape)}: {e}")
             t_l = None
         del a, wm
-        xb = q_x.permute(0, 3, 1, 2).bfloat16()  # channels_last bf16
+        xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last bf16
         kb = q_w.permute(3, 2, 0, 1).bfloat16().contiguous(
             memory_format=torch.channels_last)
         t_c = time_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
-        del xb
+        del xb, q_x
         ops = 2 * b * h * w * k * k * c * n
-        nbytes = b * h * w * c + k * k * c * n + 4 * b * h * w * n
         t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
+        # fused: f32 in, int8 weights, f32 out (the scale, dequantize and
+        # bias tables are below a KB); raw: int8 in, int32 out
+        nbytes = 4 * b * h * w * c + k * k * c * n + 4 * b * h * w * n
+        raw_bytes = b * h * w * c + k * k * c * n + 4 * b * h * w * n
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
+        raw_bound = max(t_ops, raw_bytes / HBM_BYTES_PER_S * 1e3)
         by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[3] int8_conv {name} {(b, h, w, c)}->{n} k={k}: kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch._int_mm on a "
-              f"prebuilt im2col matrix {t_l} ms (GEMM alone), cuDNN bf16 "
-              f"conv {t_c:.4f} ms, bound {bound:.4f} ms ({by}); max err "
-              f"{err:g} | {card}")
+        print(f"[3] int8_conv {name} {(b, h, w, c)}->{n} k={k}: fused kernel "
+              f"{t_k:.4f} ms (f32 in/out, bound {bound:.4f} ms, {by}), plain "
+              f"{t_p:.4f} ms, raw kernel + its former passes {t_f:.4f} ms, "
+              f"raw kernel alone {t_raw:.4f} ms (bound {raw_bound:.4f}), "
+              f"torch._int_mm on a prebuilt im2col matrix {t_l} ms (GEMM "
+              f"alone), cuDNN bf16 conv {t_c:.4f} ms; max err {err:g} "
+              f"| {card}")
         if name == "body":
             entry = dict(
                 name="int8_conv", route="cuda",
@@ -357,7 +492,9 @@ def phase_int8_conv(card: str) -> dict:
                 replaces="sr/kernels/int8_conv.py:75", launches=None,
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
                 bound_by=by, library_ms=t_l, shape=[b, h, w, c, n, k],
-                dtype="int8")
+                dtype="f32 -> int8 -> f32 (fused entry)", former_ms=t_f,
+                raw_ms=t_raw, raw_bound_ms=raw_bound)
+        del x
     return entry
 
 
@@ -510,7 +647,7 @@ def phase_int8_serve(path: Path, entry: dict, outs: dict) -> None:
     from sr_torch.infer import upscale
     from sr_torch.kernels.depth_to_space import depth_to_space
     from sr_torch.kernels.fused_resblock import fused_resblock
-    from sr_torch.kernels.int8_conv import conv_int8_im2col
+    from sr_torch.kernels.int8_conv import conv_int8_fused, conv_int8_im2col
     from sr_torch.quant import calibrate_scales, quantized_apply
     from sr_torch.serve import SRService, serve_background
     from sr_torch.utils.checkpoint import load_params
@@ -522,6 +659,7 @@ def phase_int8_serve(path: Path, entry: dict, outs: dict) -> None:
     modes = (("static", True), ("static", False), ("dynamic", False))
 
     # ---- the int8 path: counts zeroed just before, read just after ----
+    conv_int8_fused.launches = 0
     conv_int8_im2col.launches = 0
     depth_to_space.launches = 0
     fused_resblock.launches = 0
@@ -557,7 +695,8 @@ def phase_int8_serve(path: Path, entry: dict, outs: dict) -> None:
     conn.close()
     httpd.shutdown()
     httpd.server_close()
-    launches = {"int8_conv": conv_int8_im2col.launches,
+    launches = {"int8_conv": conv_int8_fused.launches,
+                "int8_conv raw entry": conv_int8_im2col.launches,
                 "depth_to_space": depth_to_space.launches,
                 "fused_resblock": fused_resblock.launches}
     print(f"[4] POST /upscale to a quantize='static' service == direct "
@@ -565,16 +704,17 @@ def phase_int8_serve(path: Path, entry: dict, outs: dict) -> None:
     print(f"[4] int8-path launches: {launches}")
     entry["launches"] = launches["int8_conv"]
     check(entry["launches"] > 0, "int8_conv never launched on the int8 path")
-    check(launches["depth_to_space"] > 0 and launches["fused_resblock"] == 0,
-          "the int8 path must shuffle with the kernel and run no float "
-          "resblock")
+    check(launches["depth_to_space"] > 0 and launches["fused_resblock"] == 0
+          and launches["int8_conv raw entry"] == 0,
+          "the int8 path must shuffle with the kernel, run every int8 conv "
+          "through the fused entry and run no float resblock")
 
     # ---- per-forward counts, after calibration (the functions are cached)
     for (quantize, fused), want in zip(modes, ((35, 1), (37, 2), (37, 2))):
-        c0, d0, r0 = (conv_int8_im2col.launches, depth_to_space.launches,
+        c0, d0, r0 = (conv_int8_fused.launches, depth_to_space.launches,
                       fused_resblock.launches)
         upscale(imgs[0], "EDSR", str(path), fused=fused, quantize=quantize)
-        got = (conv_int8_im2col.launches - c0, depth_to_space.launches - d0,
+        got = (conv_int8_fused.launches - c0, depth_to_space.launches - d0,
                fused_resblock.launches - r0)
         print(f"[4] one int8 {quantize} {'fused' if fused else 'exact'} "
               f"forward: int8_conv +{got[0]}, depth_to_space +{got[1]}, "
@@ -635,12 +775,17 @@ def phase_throughput(path: Path, card: str) -> None:
             ms = time_ms(lambda: fn(x), n=20)
             print(f"[5] EDSR x4 {name} b16 128->512: {ms:.3f} ms/batch, "
                   f"{mp / ms * 1e3:.1f} MP/s | {card}")
-            profile_batches(lambda: fn(x), name, card)
+            names = profile_batches(lambda: fn(x), name, card)
+            # every quantize pass ran a round kernel (torch.relu is a
+            # clamp_min, so clamp alone does not mark one)
+            passes = [k for k in names if re.search(r"round", k)]
+            check(not passes, f"{name} still runs quantize passes: {passes}")
 
 
-def profile_batches(fn, name: str, card: str, n: int = 5) -> None:
+def profile_batches(fn, name: str, card: str, n: int = 5) -> list[str]:
     """Device time by kernel over ``n`` batches, and the device's busy
-    share of the window from the first to the last kernel (torch.profiler)."""
+    share of the window from the first to the last kernel (torch.profiler).
+    Returns the names of the kernels seen."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -654,7 +799,7 @@ def profile_batches(fn, name: str, card: str, n: int = 5) -> None:
     if not kernels:
         print(f"[5] profile {name}: the profiler saw no device time "
               "(not measured)")
-        return
+        return []
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_start, cur_end = 0.0, *spans[0]
     for start, end in spans[1:]:
@@ -677,6 +822,7 @@ def profile_batches(fn, name: str, card: str, n: int = 5) -> None:
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[5]   {us / n / 1e3:8.3f} ms/batch {100 * us / total:5.1f}%  "
               f"{kname[:150]}")
+    return list(by_name)
 
 
 def main() -> int:

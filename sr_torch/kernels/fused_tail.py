@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from sr_torch.kernels.depth_to_space import depth_to_space, space_to_depth
-from sr_torch.kernels.int8_conv import conv_int8_im2col
+from sr_torch.kernels.int8_conv import conv_int8_fused, pack_weights
 from sr_torch.nn.intercept import intercept_convs, site_keys
 from sr_torch.quant import (
     _EPS, _run_sites, _sites, calibrate_scales_batches, calibrated_once,
@@ -207,6 +207,7 @@ def make_fused_tail_predict_quant(model, support: int = 7,
         s_K = np.maximum(np.abs(Kf).max(axis=(0, 1, 2)) / 127.0, _EPS)
         qK = torch.from_numpy(np.clip(np.round(Kf / s_K), -127, 127)
                               .astype(np.int8)).to(device)
+        packed = pack_weights(qK) if device.type == "cuda" else None
         s_out = torch.from_numpy(np.asarray(s_K, np.float32)).to(device)
         inv_s_h = torch.from_numpy(
             np.asarray(1.0 / np.asarray(s_h, np.float32), np.float32)
@@ -217,9 +218,9 @@ def make_fused_tail_predict_quant(model, support: int = 7,
             h = _run_sites(model, sites, x, "body")
             with torch.inference_mode():
                 # the JAX package multiplies by 1/s_h here, not divides
-                q_h = torch.clamp(torch.round(h.to(torch.float32) * inv_s_h),
-                                  -127, 127).to(torch.int8)
-                z = conv_int8_im2col(q_h, qK).to(torch.float32) * s_out + b_t
+                z = conv_int8_fused(h.to(torch.float32).contiguous(), qK,
+                                    inv_s_h, s_out, b_t, reciprocal=True,
+                                    packed=packed)
                 if output_u8:
                     return depth_to_space(to_u8(z), r)
                 return depth_to_space(z.to(h.dtype), r)

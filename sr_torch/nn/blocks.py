@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from sr_torch.kernels.depth_to_space import depth_to_space
-from sr_torch.kernels.fused_resblock import fused_resblock, pack_weights
+from sr_torch.kernels.fused_resblock import (
+    fused_resblock, pack_wgmma_weights, pack_weights)
 from sr_torch.nn import intercept
 from sr_torch.nn.init import lecun_normal_
 
@@ -115,17 +116,21 @@ class ResnetBlock(nn.Module):
         self._packed_key = None
 
     def packed(self):
-        """The (9·C, C) operands and f32 biases for :func:`fused_resblock`,
-        in the block's dtype on the weights' device. Packed on first use and
-        cached; packed again when a weight changes, moves or the dtype
-        changes."""
+        """The operands and f32 biases for :func:`fused_resblock`, in the
+        block's dtype on the weights' device: (9·C, C) operands, or for a
+        bf16 block on a card the kernel's ``wgmma`` layout. Packed on first
+        use and cached; packed again when a weight changes, moves or the
+        dtype changes."""
         weights = (self.Conv_0.weight, self.Conv_0.bias,
                    self.Conv_1.weight, self.Conv_1.bias)
         key = (self.dtype, weights[0].device, *(p._version for p in weights))
         if self._packed_key != key:
             with torch.no_grad():
                 w1, b1, w2, b2 = pack_weights(*weights)
-                self._packed = (w1.to(self.dtype), b1, w2.to(self.dtype), b2)
+                w1, w2 = w1.to(self.dtype), w2.to(self.dtype)
+                if w1.is_cuda and self.dtype == torch.bfloat16:
+                    w1, w2 = pack_wgmma_weights(w1), pack_wgmma_weights(w2)
+                self._packed = (w1, b1, w2, b2)
             self._packed_key = key
         return self._packed
 

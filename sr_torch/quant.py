@@ -1,9 +1,10 @@
 """Int8 post-training quantization for serving, and ``to_u8``.
 
 Port of ``sr/quant.py`` for the port's models (convs only). Every conv of a
-model runs as s8 × s8 → s32 through :func:`conv_int8_im2col` (the CUDA
-kernel on the card, its exact plain version on the CPU), then one float32
-rescale and the bias:
+model runs as s8 × s8 → s32, then one float32 rescale and the bias, all
+through :func:`conv_int8_fused`: on the card one kernel launch that
+quantizes as it loads and dequantizes as it stores, on the CPU its plain
+version, which runs the JAX package's passes one by one:
 
 * **Weights**: per-output-channel symmetric int8 (:func:`quantize_kernel`).
 * **Activations**: per-sample symmetric int8 with a dynamic scale
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from sr_torch.kernels.int8_conv import conv_int8_im2col
+from sr_torch.kernels.int8_conv import conv_int8_fused, pack_weights
 from sr_torch.nn.intercept import intercept_convs, site_keys
 
 _EPS = 1e-12
@@ -67,10 +68,17 @@ def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     axis but the batch (shape (B, 1, …, 1)): one image's range never
     coarsens another's grid under micro-batching."""
     x32 = x.to(torch.float32)
-    s = x32.abs().amax(dim=tuple(range(1, x32.dim())), keepdim=True) / 127.0
-    s = torch.clamp_min(s, _EPS)
+    s = activation_scale(x32)
     q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
     return q, s
+
+
+def activation_scale(x: torch.Tensor) -> torch.Tensor:
+    """The dynamic per-sample scale of :func:`quantize_activation`, shape
+    (B, 1, …, 1): a plain reduction, as the JAX package leaves it to XLA."""
+    x32 = x.to(torch.float32)
+    s = x32.abs().amax(dim=tuple(range(1, x32.dim())), keepdim=True) / 127.0
+    return torch.clamp_min(s, _EPS)
 
 
 def quantize_activation_static(x: torch.Tensor, scale
@@ -107,8 +115,9 @@ def _check_site(conv: nn.Module) -> None:
 class _Int8Site:
     """One conv's int8 operands, quantized once on the weights' device (the
     JAX package folds them into the executable at trace time): the int8
-    HWIO kernel, its per-output-channel scales, the float32 bias, and for a
-    static site the activation scale and the dequantize multiplier."""
+    HWIO kernel (and on the card its kernel packing), its per-output-channel
+    scales, the float32 bias, and for a static site the activation scale
+    and the dequantize multiplier."""
 
     def __init__(self, conv: nn.Conv2d, static_scale=None):
         _check_site(conv)
@@ -128,6 +137,8 @@ class _Int8Site:
                     static_scale, dtype=torch.float32, device=dev), _EPS)
             q_w, self.s_w = quantize_kernel(kernel)
             self.q_w = q_w.contiguous()
+            self.packed = (pack_weights(self.q_w) if dev.type == "cuda"
+                           else None)
             if self.s_act is not None:
                 # s_x * s_w; a folded per-channel scale leaves s_x = 1
                 self.dequant = (self.s_w if self.s_act.dim()
@@ -138,17 +149,14 @@ class _Int8Site:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW-logical ``x`` (channels_last memory) → the conv's output
         in ``x``'s dtype, laid out the same way."""
-        xh = x.permute(0, 2, 3, 1)  # NHWC
+        xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
         if self.s_act is not None:
-            q_x, _ = quantize_activation_static(xh, self.s_act)
-            dequant = self.dequant
+            scale, dequant = self.s_act, self.dequant
         else:
-            q_x, s_x = quantize_activation(xh)
-            dequant = s_x * self.s_w
-        acc = conv_int8_im2col(q_x.contiguous(), self.q_w)
-        y = acc.to(torch.float32) * dequant
-        if self.bias is not None:
-            y = y + self.bias
+            scale = activation_scale(xh)
+            dequant = scale * self.s_w
+        y = conv_int8_fused(xh, self.q_w, scale, dequant, self.bias,
+                            packed=self.packed)
         return y.to(x.dtype).permute(0, 3, 1, 2)
 
 

@@ -13,9 +13,10 @@ import torch
 from sr_torch.kernels.depth_to_space import (
     depth_to_space, depth_to_space_plain)
 from sr_torch.kernels.fused_resblock import (
-    fused_resblock, fused_resblock_plain)
+    fused_resblock, fused_resblock_plain, pack_wgmma_weights, wgmma_matmul)
 from sr_torch.kernels.int8_conv import (
-    conv_bf16_im2col, conv_bf16_plain, conv_int8_im2col, conv_int8_plain)
+    conv_bf16_im2col, conv_bf16_plain, conv_int8_fused, conv_int8_fused_plain,
+    conv_int8_im2col, conv_int8_plain, pack_weights)
 
 torch.set_num_threads(1)
 
@@ -70,10 +71,51 @@ def test_fused_resblock_kernel_matches_plain(cuda, c):
                    / (9 * c) ** 0.5).to(dtype) for _ in range(2))
         b1, b2 = (torch.randn(c, device=cuda, generator=gen) * 0.1
                   for _ in range(2))
+        # bf16 launches take the wgmma layout, as ResnetBlock.packed()
+        # caches it; the plain version takes the (9C, C) operands
+        k1, k2 = ((pack_wgmma_weights(w1), pack_wgmma_weights(w2))
+                  if dtype == torch.bfloat16 else (w1, w2))
         for rs in (1.0, 0.1):
-            got = fused_resblock(x, w1, b1, w2, b2, rs)
+            got = fused_resblock(x, k1, b1, k2, b2, rs)
             want = fused_resblock_plain(x, w1, b1, w2, b2, rs)
             assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_wgmma_matmul_matches_plain(cuda):
+    """One 64x64x64 product through the resblock kernel's ldmatrix,
+    descriptor and wgmma helpers: exact bf16 products summed in f32 in
+    another order, 1e-4 at outputs of magnitude ~1."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a, b = (torch.randn((64, 64), device=cuda, generator=gen)
+            .div(8).to(torch.bfloat16) for _ in range(2))
+    got = wgmma_matmul(a, b)
+    want = a.float() @ b.float()
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fused_resblock_bf16_is_one_launch(cuda):
+    """The bf16 block is one kernel launch: no scratch tensor, no second
+    conv kernel (torch.profiler counts the device kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    c = 64
+    x = torch.rand((2, 37, 53, c), device=cuda, generator=gen).bfloat16()
+    w1, w2 = ((torch.randn(9 * c, c, device=cuda, generator=gen)
+               / (9 * c) ** 0.5).bfloat16() for _ in range(2))
+    b1, b2 = (torch.zeros(c, device=cuda) for _ in range(2))
+    k1, k2 = pack_wgmma_weights(w1), pack_wgmma_weights(w2)
+    torch.cuda.synchronize()
+    before = fused_resblock.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_resblock(x, k1, b1, k2, b2)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type.name == "CUDA"]
+    assert fused_resblock.launches == before + 1
+    assert len(kernels) == 1 and "resblock_bf16" in kernels[0], kernels
 
 
 @pytest.mark.cuda
@@ -83,6 +125,14 @@ def test_fused_resblock_kernel_rejects_unsupported(cuda):
     b = torch.zeros(24, device=cuda)
     with pytest.raises(ValueError, match="C in"):
         fused_resblock(x, w, b, w, b)
+    # bf16 launches take only the wgmma layout, never (9C, C) operands
+    x = torch.zeros((1, 8, 8, 64), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((9 * 64, 64), device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(64, device=cuda)
+    before = fused_resblock.launches
+    with pytest.raises(ValueError, match="pack_wgmma_weights"):
+        fused_resblock(x, w, b, w, b)
+    assert fused_resblock.launches == before
 
 
 @pytest.mark.cuda
@@ -158,3 +208,154 @@ def test_int8_conv_kernel_refuses_bad_operands(cuda):
     with pytest.raises(TypeError, match="int8"):
         conv_int8_im2col(q_x.float(), torch.zeros((3, 3, 16, 8), device=cuda))
     assert conv_int8_im2col.launches == before
+
+
+def _fused_operands(gen, b, h, w, c, n, k, mode, cuda):
+    """f32 input with ±127 saturation and .5 ties: exact at a power-of-two
+    per-tensor scale, within a few ulps at per-channel scales that are not
+    powers of two; int8 weights; dequant and bias as the int8 sites make
+    them."""
+    x = torch.randn((b, h, w, c), device=cuda, generator=gen) * 2
+    q_w = torch.randint(-127, 128, (k, k, c, n), device=cuda,
+                        generator=gen).to(torch.int8)
+    s_w = torch.rand(n, device=cuda, generator=gen) * 1e-3 + 1e-4
+    if mode == "per_tensor":
+        scale = torch.tensor(2.0 ** -4, device=cuda)
+        dequant = scale * s_w
+    elif mode == "per_channel":
+        # not powers of two: x / s lands within a few ulps of .5 ties
+        scale = torch.rand(c, device=cuda, generator=gen) * 0.05 + 0.01
+        dequant = s_w
+    else:
+        scale = torch.clamp_min(x.abs().amax(dim=(1, 2, 3), keepdim=True)
+                                / 127.0, 1e-12)
+        dequant = scale * s_w
+    if mode != "dynamic":
+        # ties: (j + 0.5) * s for a few pixels, and values past ±127 * s
+        x[:, 0, :, :] = ((torch.arange(w * c, device=cuda).reshape(w, c)
+                          % 41 - 20) + 0.5) * scale
+        x[:, -1, 0, :] = 300.0 * scale
+        x[:, -1, -1, :] = -300.0 * scale
+    return x.contiguous(), q_w, scale, dequant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["per_tensor", "per_channel", "dynamic"])
+@pytest.mark.parametrize("c,n,k", [
+    (3, 64, 3), (64, 64, 3), (64, 256, 3), (64, 3, 3), (64, 48, 7),
+    (3, 3, 7),
+])
+def test_int8_fused_kernel_matches_plain(cuda, mode, c, n, k):
+    """Bit for bit: the kernel quantizes, dequantizes and adds the bias
+    with the plain version's roundings, with and without a bias."""
+    gen = torch.Generator(device=cuda).manual_seed(c * 7 + n + k)
+    x, q_w, scale, dequant = _fused_operands(gen, 2, 11, 37, c, n, k, mode,
+                                             cuda)
+    bias = torch.randn(n, device=cuda, generator=gen)
+    packed = pack_weights(q_w)
+    for bias_ in (bias, None):
+        before = conv_int8_fused.launches
+        got = conv_int8_fused(x, q_w, scale, dequant, bias_, packed=packed)
+        assert conv_int8_fused.launches == before + 1
+        want = conv_int8_fused_plain(x, q_w, scale, dequant, bias_)
+        assert got.dtype == torch.float32 and got.shape == (2, 11, 37, n)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_fused_kernel_reciprocal_scale_matches_plain(cuda):
+    """The fused-quant tail multiplies by 1/s: x * s on load."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((2, 13, 11, 64), device=cuda, generator=gen)
+    q_w = torch.randint(-127, 128, (7, 7, 64, 48), device=cuda,
+                        generator=gen).to(torch.int8)
+    inv = 1.0 / (torch.rand(64, device=cuda, generator=gen) * 0.05 + 0.01)
+    dequant = torch.rand(48, device=cuda, generator=gen) * 1e-3
+    bias = torch.randn(48, device=cuda, generator=gen)
+    got = conv_int8_fused(x, q_w, inv, dequant, bias, reciprocal=True,
+                          packed=pack_weights(q_w))
+    assert torch.equal(got, conv_int8_fused_plain(x, q_w, inv, dequant, bias,
+                                                  reciprocal=True))
+
+
+@pytest.mark.cuda
+def test_int8_fused_kernel_rounds_near_ties_like_division(cuda):
+    """The kernel multiplies by 1/s and divides only near a half-way point:
+    a 1x1 conv with weight 1 and dequant 1 returns the quantized values,
+    which must equal clamp(round(x / s)) at values within a few ulps of
+    every tie, and past the ±127 clamp."""
+    j = torch.arange(-140, 141, dtype=torch.float32) + 0.5
+    for s in (0.0123, 0.1, 3.7e-3, 0.3):
+        up = down = (j * s).to(torch.float32)
+        near = [up]
+        for _ in range(3):  # 1 to 3 ulps either side
+            up = torch.nextafter(up, torch.tensor(float("inf")))
+            down = torch.nextafter(down, torch.tensor(float("-inf")))
+            near += [up, down]
+        x = torch.cat(near).reshape(1, 1, -1, 1).to(cuda)
+        ones = torch.ones((1, 1, 1, 1), dtype=torch.int8, device=cuda)
+        scale = torch.tensor(s, device=cuda)
+        dequant = torch.ones(1, device=cuda)
+        got = conv_int8_fused(x, ones, scale, dequant,
+                              packed=pack_weights(ones))
+        want = conv_int8_fused_plain(x, ones, scale, dequant)
+        assert torch.equal(got, want)
+        assert torch.equal(got, torch.clamp(torch.round(x / scale), -127,
+                                            127))
+
+
+def _offset(t, elements):
+    """A contiguous copy of ``t`` whose data starts ``elements`` elements
+    past a fresh allocation: 16-byte misaligned for 1 of 4-byte floats."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_off,scale_off", [(0, 0), (1, 0), (0, 1)])
+def test_int8_fused_kernel_vector_and_scalar_loads_match_plain(
+        cuda, x_off, scale_off):
+    """C=64 with x and the per-channel scale 16-byte aligned: the kernel
+    loads 16-byte vectors; with either one misaligned it loads scalars.
+    Both bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, q_w, scale, dequant = _fused_operands(gen, 2, 11, 37, 64, 64, 3,
+                                             "per_channel", cuda)
+    x, scale = _offset(x, x_off), _offset(scale, scale_off)
+    assert (x.data_ptr() % 16 != 0) == bool(x_off)
+    assert (scale.data_ptr() % 16 != 0) == bool(scale_off)
+    bias = torch.randn(64, device=cuda, generator=gen)
+    got = conv_int8_fused(x, q_w, scale, dequant, bias,
+                          packed=pack_weights(q_w))
+    assert torch.equal(got, conv_int8_fused_plain(x, q_w, scale, dequant,
+                                                  bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_int8_conv_kernel_vector_and_scalar_loads_match_plain(cuda, offset):
+    """The raw entry at C=64: 16-byte vector loads when x is aligned, byte
+    loads when it is not. Exact."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q_x = torch.randint(-127, 128, (2, 11, 37, 64), device=cuda,
+                        generator=gen).to(torch.int8)
+    q_w = torch.randint(-127, 128, (3, 3, 64, 64), device=cuda,
+                        generator=gen).to(torch.int8)
+    q_x = _offset(q_x, offset)
+    assert (q_x.data_ptr() % 16 != 0) == bool(offset)
+    assert torch.equal(conv_int8_im2col(q_x, q_w), conv_int8_plain(q_x, q_w))
+
+
+@pytest.mark.cuda
+def test_int8_fused_kernel_requires_packed_weights(cuda):
+    """The fused entry never packs per call: a launch without ``packed``
+    raises and launches nothing."""
+    x = torch.zeros((1, 4, 4, 8), device=cuda)
+    q_w = torch.zeros((3, 3, 8, 4), dtype=torch.int8, device=cuda)
+    before = conv_int8_fused.launches
+    with pytest.raises(ValueError, match="pack_weights"):
+        conv_int8_fused(x, q_w, torch.tensor(1.0, device=cuda),
+                        torch.ones(4, device=cuda))
+    assert conv_int8_fused.launches == before

@@ -22,7 +22,7 @@ from sr_torch.kernels import _build
 from sr_torch.kernels.depth_to_space import (
     depth_to_space, depth_to_space_plain, space_to_depth)
 from sr_torch.kernels.fused_resblock import (
-    fused_resblock, fused_resblock_plain, pack_weights)
+    fused_resblock, fused_resblock_plain, pack_wgmma_weights, pack_weights)
 
 torch.set_num_threads(1)
 
@@ -112,6 +112,28 @@ def test_pack_weights_matches_jax_layout():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert got[1].dtype == torch.float32 and got[3].dtype == torch.float32
+
+
+@pytest.mark.parametrize("c", [16, 48, 64])
+def test_pack_wgmma_weights_layout(c):
+    """The bf16 kernel's operand: per tap a 64 × 64 K-major matrix (row n =
+    output channel n, its input channels along the row), zero past C, with
+    16-byte chunk j of row n stored at chunk j ^ (n % 8) — wgmma's 128-byte
+    swizzle."""
+    _, _, p, _ = _flax_resblock(c, 8, 8, 1, 1.0, seed=c)
+    w1, _, w2, _ = (t.to(torch.bfloat16) if t.dim() == 2 else t
+                    for t in _port_pack(p))
+    for w in (w1, w2):
+        got = pack_wgmma_weights(w)
+        assert got.shape == (9, 64, 64) and got.dtype == torch.bfloat16
+        taps = w.reshape(9, c, c)  # [tap][ci][n]
+        for n in range(64):
+            for j in range(8):
+                chunk = got[:, n, 8 * (j ^ (n % 8)):8 * (j ^ (n % 8)) + 8]
+                if n < c and 8 * j < c:
+                    assert torch.equal(chunk, taps[:, 8 * j:8 * j + 8, n])
+                else:
+                    assert not chunk.float().any()
 
 
 @pytest.mark.parametrize("res_scale", [1.0, 0.1])
