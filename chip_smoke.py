@@ -13,14 +13,17 @@ Phases; any failure raises and exits non-zero without the final line:
 2. Build the CUDA kernels from ``sr_torch/kernels/csrc`` into ``build/``.
 3. Hold each kernel against its plain PyTorch version on the card, and time
    kernel, plain version, one library call and the bound at the serving
-   path's shapes (CUDA events, median of 30). One wgmma product must match
-   a plain matmul; the int8 conv (raw and fused entries) must equal its
-   plain version exactly, the u8 shuffle too.
+   path's shapes (device time: CUDA events around 20 calls queued behind a
+   sleep kernel, so the host's launch overhead stays out; median of 5).
+   One wgmma product must match a plain matmul; the int8 conv (raw and
+   fused entries) must equal its plain version exactly, the shuffle too
+   (f32, bf16 and u8, with and without the PS conv's bias).
 4. Serve EDSR ×4 (16 resblocks × 64 filters, RGB, seeded random weights
-   saved in the JAX package's .npz format) through ``sr_torch.infer.upscale``
-   and the port's HTTP server: exact and fused tails, bf16 and f32, three
-   image sizes, one of them tiled. Then the int8 paths (static exact, static
-   fused, dynamic) on the same images and one POST to an int8 service.
+   and nonzero biases saved in the JAX package's .npz format) through
+   ``sr_torch.infer.upscale`` and the port's HTTP server: exact and fused
+   tails, bf16 and f32, three image sizes, one of them tiled. Then the int8
+   paths (static exact, static fused, dynamic) on the same images and one
+   POST to an int8 service.
    Launch counts are zeroed just before each of the two runs and read just
    after; every kernel of a run must have run (the int8 paths through the
    fused int8 entry). Per-forward launch counts,
@@ -28,8 +31,9 @@ Phases; any failure raises and exits non-zero without the final line:
    for bit), and int8 against float interiors.
 5. Throughput of the exact and fused bf16 paths and of the int8-static
    exact and fused paths at 128² LR → 512² out, b16, and a torch.profiler
-   breakdown of their device time by kernel; the int8 profiles must show
-   no quantize pass (its ``round`` kernel).
+   breakdown of their device time by kernel; the bf16 profiles must show
+   no add over a shuffled conv's output (the shuffle adds that bias), the
+   int8 profiles no quantize pass (its ``round`` kernel).
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card line, then as
 its last line ``{"ok": true, "device": {...}}``.
@@ -76,7 +80,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, n: int = 30, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, one CUDA event pair per call."""
+    """Median time of ``fn`` in ms, one CUDA event pair per call: the span
+    on the card from the first kernel's queueing to the last one's end, so
+    it includes gaps where the card waits for the host (end to end)."""
     for _ in range(warmup):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True),
@@ -87,6 +93,46 @@ def time_ms(fn, n: int = 30, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def kernel_ms(fn, n: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` in ms, the host's launch overhead
+    left out: a sleep kernel holds the stream while the host queues ``n``
+    calls between two events, which the card then runs back to back. The
+    median over ``reps`` of the span over ``n``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    cycles = int((2 * n * host_s + 1e-3) * 2e9)  # SM clocks are below 2 GHz
+    spans = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end) / n)
+    return statistics.median(spans)
+
+
+def host_us(fn, n: int = 20) -> float:
+    """Host time of one call of ``fn`` in µs: what the caller's thread
+    spends to queue it (the card is idle and synchronised first)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase_toolchain() -> str:
@@ -141,6 +187,78 @@ def _kernel_operands(ops):
     return x, w1, b1, w2, b2
 
 
+def _d2s_operands(shape, dtype, gen, with_bias):
+    """A shuffle's input, and a bias of its channels (None for u8)."""
+    if dtype == torch.uint8:
+        x = torch.randint(0, 256, shape, device="cuda", generator=gen)
+        return x.to(dtype), None
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    bias = (torch.randn(shape[-1], device="cuda", generator=gen).to(dtype)
+            if with_bias else None)
+    return x, bias
+
+
+#: the serving path's shuffles at b16, 128² LR: (H, C·r², r). bf16 exact
+#: runs the two r=2 stages with the PS convs' biases, bf16 fused the r=4
+#: tail; the int8 paths run the same shapes in f32, and the fused-quant
+#: tail in u8.
+D2S_SHAPES = ((128, 256, 2), (256, 256, 2), (128, 48, 4))
+
+
+def _d2s_serving(card: str, gen, d2s_err: float) -> dict:
+    """The shuffle at the serving shapes: exact against its plain version
+    with and without bias; times of the kernel (with the bias too), the
+    plain version, F.pixel_shuffle and the bytes bound. Returns the JSON
+    entry, at the largest bf16 shuffle of the exact path."""
+    from sr_torch.kernels.depth_to_space import (
+        depth_to_space, depth_to_space_plain)
+
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32, torch.uint8):
+        for h, cin, r in D2S_SHAPES:
+            if dtype == torch.uint8 and r != 4:
+                continue  # u8 is the fused-quant tail's output only
+            x, bias = _d2s_operands((16, h, h, cin), dtype, gen, True)
+            xc = x.permute(0, 3, 1, 2)  # the same memory as NCHW channels_last
+            for b_ in (None, bias) if bias is not None else (None,):
+                got = depth_to_space(x, r, None, b_)
+                want = depth_to_space_plain(x, r, None, b_)
+                d2s_err = max(d2s_err, float(
+                    (got.float() - want.float()).abs().max()))
+                check(torch.equal(got, want),
+                      f"depth_to_space differs at {tuple(x.shape)} r={r} "
+                      f"{dtype} bias={b_ is not None}")
+                del got, want
+            t_k = kernel_ms(lambda: depth_to_space(x, r))
+            t_h = host_us(lambda: depth_to_space(x, r))
+            t_p = kernel_ms(lambda: depth_to_space_plain(x, r).contiguous())
+            t_l = kernel_ms(lambda: F.pixel_shuffle(xc, r))
+            bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            with_bias = ""
+            if bias is not None:
+                t_kb = kernel_ms(lambda: depth_to_space(x, r, None, bias))
+                t_pb = kernel_ms(lambda: depth_to_space_plain(
+                    x, r, None, bias).contiguous())
+                with_bias = (f"; with bias: kernel {t_kb:.4f} ms, plain "
+                             f"{t_pb:.4f} ms")
+            print(f"[3] depth_to_space {tuple(x.shape)} r={r} "
+                  f"{str(dtype)[6:]}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+                  f"ms, F.pixel_shuffle {t_l:.4f} ms, bound {bound:.4f} ms "
+                  f"(bytes){with_bias}; host {t_h:.1f} us a call | {card}")
+            if dtype == torch.bfloat16 and h == 256:
+                entry = dict(
+                    name="depth_to_space", route="cuda",
+                    source="sr_torch/kernels/csrc/depth_to_space.cu",
+                    replaces="sr/kernels/depth_to_space.py:73", launches=None,
+                    max_abs_err=None, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                    bound_by="bytes", library_ms=t_l, shape=list(x.shape),
+                    dtype="bfloat16", ms_with_bias=t_kb,
+                    plain_ms_with_bias=t_pb)
+            del x, xc, bias
+    entry["max_abs_err"] = d2s_err
+    return entry
+
+
 def phase_kernels(card: str) -> list[dict]:
     from sr_torch.kernels.depth_to_space import (
         depth_to_space, depth_to_space_plain)
@@ -156,30 +274,28 @@ def phase_kernels(card: str) -> list[dict]:
     print(f"[3] wgmma m64n64k16 x4 product vs plain matmul: max err "
           f"{mm_err:.3g} (tol 1e-4)")
     check(mm_err <= 1e-4, "wgmma product disagrees with a plain matmul")
-    # depth_to_space: exact equality, odd H and W included
+    # depth_to_space: exact equality, with and without bias, odd H and W
     n, d2s_err = 0, 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
         for r in (2, 3, 4):
             for act in (None, "relu"):
                 for b, h, w, c in ((2, 5, 7, 3), (2, 17, 9, 64)):
-                    x = torch.randn((b, h, w, c * r * r), device="cuda",
-                                    generator=gen).to(dtype)
-                    got = depth_to_space(x, r, act)
-                    want = depth_to_space_plain(x, r, act)
-                    torch.cuda.synchronize()
-                    d2s_err = max(d2s_err, float(
-                        (got.float() - want.float()).abs().max()))
-                    check(torch.equal(got, want),
-                          f"depth_to_space differs: {dtype} r={r} act={act} "
-                          f"{(b, h, w, c)}")
-                    n += 1
-    for r, c in ((4, 3), (2, 64)):  # the fused-quant tail's u8 shuffle
-        x = torch.randint(0, 256, (2, 13, 11, c * r * r), device="cuda",
-                          generator=gen).to(torch.uint8)
-        check(torch.equal(depth_to_space(x, r), depth_to_space_plain(x, r)),
-              f"u8 depth_to_space differs: r={r} c={c}")
-        n += 1
-    print(f"[3] depth_to_space == plain on {n} cases (exact; f32, bf16, u8)")
+                    for with_bias in (False, True):
+                        if dtype == torch.uint8 and (with_bias or act):
+                            continue
+                        x, bias = _d2s_operands((b, h, w, c * r * r), dtype,
+                                                gen, with_bias)
+                        got = depth_to_space(x, r, act, bias)
+                        want = depth_to_space_plain(x, r, act, bias)
+                        torch.cuda.synchronize()
+                        d2s_err = max(d2s_err, float(
+                            (got.float() - want.float()).abs().max()))
+                        check(torch.equal(got, want),
+                              f"depth_to_space differs: {dtype} r={r} "
+                              f"act={act} {(b, h, w, c)} bias={with_bias}")
+                        n += 1
+    print(f"[3] depth_to_space == plain on {n} cases (exact; f32, bf16, u8; "
+          "with and without bias)")
 
     # fused_resblock: tolerances from f32 summation order over K=576, and
     # about one bf16 ulp at these magnitudes (outputs below 4)
@@ -199,46 +315,7 @@ def phase_kernels(card: str) -> list[dict]:
                 if dtype == torch.bfloat16 and shape[0] == 16 and rs == 1.0:
                     main_err = err
 
-    entries = []
-    # depth_to_space at the serving path's shapes (b16 bf16 128² LR)
-    for stage, (h, cin) in enumerate(((128, 256), (256, 256), (128, 48))):
-        r = 4 if cin == 48 else 2
-        x = torch.randn((16, h, h, cin), device="cuda",
-                        generator=gen).to(torch.bfloat16)
-        xc = x.permute(0, 3, 1, 2)  # the same memory as NCHW channels_last
-        got = depth_to_space(x, r)
-        d2s_err = max(d2s_err, float(
-            (got.float() - depth_to_space_plain(x, r).float()).abs().max()))
-        check(d2s_err == 0.0, f"depth_to_space differs at {tuple(x.shape)}")
-        t_k = time_ms(lambda: depth_to_space(x, r))
-        t_p = time_ms(lambda: depth_to_space_plain(x, r).contiguous())
-        t_l = time_ms(lambda: F.pixel_shuffle(xc, r))
-        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-        print(f"[3] depth_to_space {tuple(x.shape)} r={r} bf16: kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.pixel_shuffle "
-              f"{t_l:.4f} ms, bound {bound:.4f} ms (bytes) | {card}")
-        if cin == 48:  # the fused-quant tail shuffles u8
-            xu = torch.randint(0, 256, x.shape, device="cuda",
-                               generator=gen).to(torch.uint8)
-            check(torch.equal(depth_to_space(xu, r),
-                              depth_to_space_plain(xu, r)),
-                  "u8 depth_to_space differs at the tail shape")
-            xuc = xu.permute(0, 3, 1, 2)
-            tu_k = time_ms(lambda: depth_to_space(xu, r))
-            tu_p = time_ms(lambda: depth_to_space_plain(xu, r).contiguous())
-            tu_l = time_ms(lambda: F.pixel_shuffle(xuc, r))
-            bu = 2 * xu.numel() / HBM_BYTES_PER_S * 1e3
-            print(f"[3] depth_to_space {tuple(xu.shape)} r={r} u8: kernel "
-                  f"{tu_k:.4f} ms, plain {tu_p:.4f} ms, F.pixel_shuffle "
-                  f"{tu_l:.4f} ms, bound {bu:.4f} ms (bytes) | {card}")
-        if stage == 1:  # the largest shuffle of the exact path
-            entries.append(dict(
-                name="depth_to_space", route="cuda",
-                source="sr_torch/kernels/csrc/depth_to_space.cu",
-                replaces="sr/kernels/depth_to_space.py:73", launches=None,
-                max_abs_err=d2s_err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-                bound_by="bytes", library_ms=t_l, shape=list(x.shape),
-                dtype="bfloat16"))
+    entries = [_d2s_serving(card, gen, d2s_err)]
 
     # fused_resblock at EDSR's body shape
     for dtype in (torch.bfloat16, torch.float32):
@@ -247,8 +324,8 @@ def phase_kernels(card: str) -> list[dict]:
         x, w1, b1, w2, b2 = ops
         c = shape[-1]
         kops = _kernel_operands(ops)
-        t_k = time_ms(lambda: fused_resblock(*kops))
-        t_p = time_ms(lambda: fused_resblock_plain(x, w1, b1, w2, b2))
+        t_k = kernel_ms(lambda: fused_resblock(*kops))
+        t_p = kernel_ms(lambda: fused_resblock_plain(x, w1, b1, w2, b2))
         xc = x.permute(0, 3, 1, 2)
         k1, k2 = (w.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last) for w in (w1, w2))
@@ -257,9 +334,9 @@ def phase_kernels(card: str) -> list[dict]:
             return xc + F.conv2d(F.relu(F.conv2d(xc, k1, lb1, padding=1)),
                                  k2, lb2, padding=1)
 
-        t_l = time_ms(library)  # PyTorch's default: TF32 for f32 convs
+        t_l = kernel_ms(library)  # PyTorch's default: TF32 for f32 convs
         with no_tf32():
-            t_l32 = time_ms(library)
+            t_l32 = kernel_ms(library)
         flops = 2 * 2 * x.numel() * 9 * c
         nbytes = (2 * x.numel() + 2 * 9 * c * c) * x.element_size() + 2 * c * 4
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -443,21 +520,21 @@ def phase_int8_conv(card: str) -> dict:
         check(torch.equal(conv_int8_im2col(q_x, q_w),
                           conv_int8_plain(q_x, q_w)),
               f"int8_conv differs at the {name} shape")
-        t_k = time_ms(lambda: conv_int8_fused(x, q_w, scale, dequant, bias,
-                                              packed=packed))
-        t_p = time_ms(lambda: conv_int8_fused_plain(x, q_w, scale, dequant,
-                                                    bias))
-        t_raw = time_ms(lambda: conv_int8_im2col(q_x, q_w))
+        t_k = kernel_ms(lambda: conv_int8_fused(x, q_w, scale, dequant,
+                                                bias, packed=packed))
+        t_p = kernel_ms(lambda: conv_int8_fused_plain(x, q_w, scale,
+                                                      dequant, bias))
+        t_raw = kernel_ms(lambda: conv_int8_im2col(q_x, q_w))
 
         def former():  # the raw kernel inside the passes it replaced
             qq = torch.clamp(torch.round(x / scale), -127, 127).to(
                 torch.int8)
             return conv_int8_im2col(qq, q_w).to(torch.float32) * dequant + bias
 
-        t_f = time_ms(former)
+        t_f = kernel_ms(former)
         a, wm = _int_mm_operands(q_x, q_w)
         try:  # a yardstick only: the port never calls it
-            t_l = time_ms(lambda: torch._int_mm(a, wm))
+            t_l = kernel_ms(lambda: torch._int_mm(a, wm))
         except RuntimeError as e:
             print(f"[3] torch._int_mm refused {tuple(a.shape)} x "
                   f"{tuple(wm.shape)}: {e}")
@@ -466,7 +543,7 @@ def phase_int8_conv(card: str) -> dict:
         xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last bf16
         kb = q_w.permute(3, 2, 0, 1).bfloat16().contiguous(
             memory_format=torch.channels_last)
-        t_c = time_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
+        t_c = kernel_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
         del xb, q_x
         ops = 2 * b * h * w * k * k * c * n
         t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
@@ -500,8 +577,8 @@ def phase_int8_conv(card: str) -> dict:
 
 def _seeded_edsr(dtype: str):
     """Full-width EDSR ×4 with seeded random weights, scaled like a trained
-    EDSR's: small residual branches and a mid-grey output bias, so the
-    outputs spread over [0, 1] instead of saturating."""
+    EDSR's: small residual branches, small biases and a mid-grey output
+    bias, so the outputs spread over [0, 1] instead of saturating."""
     from sr_torch.models.registry import get_spec
     from sr_torch.utils.config import SRConfig
 
@@ -509,10 +586,16 @@ def _seeded_edsr(dtype: str):
                    dtype=dtype)
     model = get_spec("EDSR").make_model(
         cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for blk in model.blocks:
             blk.Conv_1.weight.mul_(0.1)
-        model.out_conv.Conv_0.bias.fill_(0.5)
+        # every conv gets a small nonzero bias (flax's init zeroes them), so
+        # a bias the PS blocks drop or add twice shows in the checks
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.02)
+        model.out_conv.Conv_0.bias.add_(0.5)
     return cfg, model
 
 
@@ -766,7 +849,17 @@ def phase_throughput(path: Path, card: str) -> None:
             ms = time_ms(lambda: fn(x), n=20)
             print(f"[5] EDSR x4 {name} bf16 b16 128->512: {ms:.3f} ms/batch, "
                   f"{mp / ms * 1e3:.1f} MP/s | {card}")
-            profile_batches(lambda: fn(x), name, card)
+            _, adds = profile_batches(lambda: fn(x), name, card)
+            # the shuffle adds the PS convs' biases (exact) and the
+            # composite tail conv's (fused): no add pass over their outputs
+            # (NCHW shapes of the conv outputs)
+            conv_outs = ([[16, 48, 128, 128]] if fused else
+                         [[16, 256, 128, 128], [16, 256, 256, 256]])
+            over = [a for a in adds if any(list(t) in conv_outs for t in a)]
+            print(f"[5] {name}: add ops over the shuffled conv outputs: "
+                  f"{len(over)} (want 0; {len(adds)} add ops in the profile)")
+            check(not over, f"bf16 {name} still adds a bias over a shuffled "
+                  f"conv's output: {over[:2]}")
         for fused in (False, True):
             fn = make_serving_predict(model, fused, quantize="static",
                                       calib_headroom=1.25)
@@ -775,31 +868,35 @@ def phase_throughput(path: Path, card: str) -> None:
             ms = time_ms(lambda: fn(x), n=20)
             print(f"[5] EDSR x4 {name} b16 128->512: {ms:.3f} ms/batch, "
                   f"{mp / ms * 1e3:.1f} MP/s | {card}")
-            names = profile_batches(lambda: fn(x), name, card)
+            names, _ = profile_batches(lambda: fn(x), name, card)
             # every quantize pass ran a round kernel (torch.relu is a
             # clamp_min, so clamp alone does not mark one)
             passes = [k for k in names if re.search(r"round", k)]
             check(not passes, f"{name} still runs quantize passes: {passes}")
 
 
-def profile_batches(fn, name: str, card: str, n: int = 5) -> list[str]:
+def profile_batches(fn, name: str, card: str, n: int = 5
+                    ) -> tuple[list[str], list[list]]:
     """Device time by kernel over ``n`` batches, and the device's busy
     share of the window from the first to the last kernel (torch.profiler).
-    Returns the names of the kernels seen."""
+    Returns the names of the kernels seen and the input shapes of every
+    ``aten::add``/``aten::add_`` op."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     events = list(prof.events())
+    adds = [e.input_shapes for e in events
+            if e.name in ("aten::add", "aten::add_")]
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     if not kernels:
         print(f"[5] profile {name}: the profiler saw no device time "
               "(not measured)")
-        return []
+        return [], adds
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_start, cur_end = 0.0, *spans[0]
     for start, end in spans[1:]:
@@ -822,7 +919,7 @@ def profile_batches(fn, name: str, card: str, n: int = 5) -> list[str]:
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[5]   {us / n / 1e3:8.3f} ms/batch {100 * us / total:5.1f}%  "
               f"{kname[:150]}")
-    return list(by_name)
+    return list(by_name), adds
 
 
 def main() -> int:

@@ -135,9 +135,11 @@ def make_fused_tail_predict(model, support: int = 7):
 
     def predict(x: torch.Tensor) -> torch.Tensor:
         h = model.body(x)  # NHWC in the model's dtype
-        z = F.conv2d(h.permute(0, 3, 1, 2).to(dtype), weight, bias,
-                     padding=pad)
-        return depth_to_space(z.permute(0, 2, 3, 1).contiguous(), r)
+        # the shuffle adds the composite bias as it loads the conv's output
+        # (cuDNN's conv would add it in a pass of its own)
+        z = F.conv2d(h.permute(0, 3, 1, 2).to(dtype), weight, padding=pad)
+        return depth_to_space(z.permute(0, 2, 3, 1).contiguous(), r,
+                              bias=bias)
 
     return predict
 

@@ -13,7 +13,9 @@ in both packages.
 
 * ``ResnetBlock`` at inference calls :func:`fused_resblock` (the CUDA kernel
   on the card, its plain version on the CPU).
-* ``PSBlock`` calls :func:`depth_to_space` for the shuffle.
+* ``PSBlock`` runs its conv without the bias and hands the bias to
+  :func:`depth_to_space`, which adds it as it shuffles; under an
+  interceptor the intercepted conv keeps its bias and the shuffle gets none.
 * Other convs are ``F.conv2d``: the JAX package left them to XLA, outside
   any Pallas kernel.
 * Every conv goes through :func:`_apply_conv`, which first offers it to the
@@ -58,17 +60,27 @@ def _conv(in_features: int, features: int, kernel_size: int, stride: int,
     return conv
 
 
-def _apply_conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+def _run_conv(conv: nn.Conv2d, x: torch.Tensor, dtype, add_bias: bool
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``conv`` on ``x``: ``(y, bias_left)``. ``bias_left`` is the conv's
+    bias in ``dtype`` when ``add_bias`` is false and the conv ran here
+    without it, for the caller to add; else None (an interceptor's conv
+    includes its bias)."""
     # the interceptor takes x before the cast, as flax's interceptor sees
     # nn.Conv's argument before nn.Conv casts it to its dtype
     fn = intercept.active()
     if fn is not None:
         y = fn(conv, x)
         if y is not None:
-            return y
+            return y, None
     bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias,
-                    conv.stride, conv.padding)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype),
+                 bias if add_bias else None, conv.stride, conv.padding)
+    return y, None if add_bias else bias
+
+
+def _apply_conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    return _run_conv(conv, x, dtype, add_bias=True)[0]
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -168,8 +180,11 @@ class PSBlock(nn.Module):
                             kernel_size, 1, True, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _apply_conv(self.Conv_0, x, self.dtype)
+        # the shuffle adds the conv's bias as it loads the conv's output
+        # (flax's arithmetic: the conv rounded to dtype, then + bias), unless
+        # an interceptor ran the conv with its bias
+        y, bias = _run_conv(self.Conv_0, x, self.dtype, add_bias=False)
         # ReLU commutes with the shuffle, so the kernel applies it
         act = "relu" if self.act == "relu" else None
-        return depth_to_space(_nhwc(y), self.scale_factor, act).permute(
-            0, 3, 1, 2)
+        return depth_to_space(_nhwc(y), self.scale_factor, act,
+                              bias).permute(0, 3, 1, 2)

@@ -54,11 +54,18 @@ def to_u8(y: torch.Tensor) -> torch.Tensor:
                        0, 255).to(torch.uint8)
 
 
+def _div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` rounded once, as the CPU and the JAX package divide. With
+    a Python number as the divisor, PyTorch's CUDA kernel multiplies by
+    1/127 instead, which lands one ulp off for some values."""
+    return t / torch.full_like(t, 127.0)
+
+
 def quantize_kernel(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric int8: HWIO (k, k, cin, cout) →
     (int8 kernel, float32 scale[cout])."""
     k32 = kernel.to(torch.float32)
-    s = torch.clamp_min(k32.abs().amax(dim=(0, 1, 2)) / 127.0, _EPS)
+    s = torch.clamp_min(_div127(k32.abs().amax(dim=(0, 1, 2))), _EPS)
     q = torch.clamp(torch.round(k32 / s), -127, 127).to(torch.int8)
     return q, s
 
@@ -77,7 +84,7 @@ def activation_scale(x: torch.Tensor) -> torch.Tensor:
     """The dynamic per-sample scale of :func:`quantize_activation`, shape
     (B, 1, …, 1): a plain reduction, as the JAX package leaves it to XLA."""
     x32 = x.to(torch.float32)
-    s = x32.abs().amax(dim=tuple(range(1, x32.dim())), keepdim=True) / 127.0
+    s = _div127(x32.abs().amax(dim=tuple(range(1, x32.dim())), keepdim=True))
     return torch.clamp_min(s, _EPS)
 
 

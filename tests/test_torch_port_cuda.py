@@ -28,30 +28,100 @@ def cuda():
     return torch.device("cuda")
 
 
+def _d2s_operands(shape, r, dtype, gen, device, with_bias):
+    b, h, w, c = shape
+    cin = c * r * r
+    if dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, h, w, cin), device=device,
+                          generator=gen).to(dtype)
+    else:
+        x = torch.randn((b, h, w, cin), device=device, generator=gen).to(dtype)
+    bias = (torch.randn(cin, device=device, generator=gen).to(dtype)
+            if with_bias else None)
+    return x, bias
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c", [(2, 5, 7, 16), (1, 3, 300, 16),
-                                     (2, 4, 9, 3)])
+                                     (2, 4, 9, 3), (1, 2, 7, 3),
+                                     (1, 2, 1100, 3)])
 def test_depth_to_space_kernel_matches_plain(cuda, b, h, w, c):
-    """Exact. (1, 3, 300, 16): an output row longer than one block of
-    threads; C=3: no 16-byte vectors."""
+    """Exact, with and without bias, f32/bf16/u8 (no bias for u8),
+    r in {2, 3, 4, 8}. (1, 3, 300, 16) and (1, 2, 1100, 3): rows longer
+    than one staged 16 KB segment; C=3 and odd W: output runs that are not
+    whole 16-byte vectors and start off a 16-byte boundary."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        for r in (2, 3, 4):
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+        for r in (2, 3, 4, 8):
             for act in (None, "relu"):
-                x = torch.randn((b, h, w, c * r * r), device=cuda,
-                                generator=gen).to(dtype)
-                before = depth_to_space.launches
-                got = depth_to_space(x, r, act)
-                assert depth_to_space.launches == before + 1
-                assert torch.equal(got, depth_to_space_plain(x, r, act))
+                for with_bias in (False, True):
+                    if dtype == torch.uint8 and with_bias:
+                        continue
+                    x, bias = _d2s_operands((b, h, w, c), r, dtype, gen,
+                                            cuda, with_bias)
+                    before = depth_to_space.launches
+                    got = depth_to_space(x, r, act, bias)
+                    assert depth_to_space.launches == before + 1
+                    assert torch.equal(got, depth_to_space_plain(x, r, act,
+                                                                 bias))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 2 ** 28, 4), (2 ** 30, 1, 1, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_depth_to_space_kernel_takes_unaligned_input(cuda, dtype):
+    """A contiguous slice one element into its storage (4, 2 or 1 bytes
+    past a 16-byte boundary) and a bias slice just as far in: the staged
+    load's ragged head and tail and the bias's scalar path. Exact."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for r, (b, h, w, c) in ((2, (2, 3, 40, 16)), (4, (1, 3, 9, 3)),
+                            (3, (1, 2, 7, 3))):
+        shape = (b, h, w, c * r * r)
+        flat, _ = _d2s_operands((1, 1, 1, b * h * w * c * r * r + 1), 1,
+                                dtype, gen, cuda, False)
+        x = flat.reshape(-1)[1:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        biases = [None]
+        if dtype != torch.uint8:
+            b_flat = torch.randn(c * r * r + 1, device=cuda,
+                                 generator=gen).to(dtype)
+            biases.append(b_flat[1:])
+        for bias in biases:
+            for act in (None, "relu"):
+                assert torch.equal(depth_to_space(x, r, act, bias),
+                                   depth_to_space_plain(x, r, act, bias))
+
+
+@pytest.mark.cuda
+def test_depth_to_space_kernel_takes_the_largest_pixel(cuda):
+    """One LR pixel of 64 KiB, the kernel's limit: above 48 KB of dynamic
+    shared memory a block, which the launch has to ask for. Exact."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, bias = _d2s_operands((1, 2, 3, 8192), 2, torch.bfloat16, gen, cuda,
+                            True)
+    assert x.shape[-1] * x.element_size() == 2 ** 16
+    assert torch.equal(depth_to_space(x, 2, None, bias),
+                       depth_to_space_plain(x, 2, None, bias))
+
+
+@pytest.mark.cuda
+def test_depth_to_space_kernel_refuses_a_u8_bias(cuda):
+    x = torch.zeros((1, 2, 2, 4), dtype=torch.uint8, device=cuda)
+    before = depth_to_space.launches
+    with pytest.raises(ValueError, match="no bias for uint8"):
+        depth_to_space(x, 2, bias=torch.zeros(4, dtype=torch.uint8,
+                                              device=cuda))
+    assert depth_to_space.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 2 ** 28, 4), (2 ** 31, 1, 1, 4),
+                                   (1, 1, 1, 2 ** 15 + 4)])
 def test_depth_to_space_kernel_refuses_oversize(cuda, shape):
-    """2^30 elements in one input row, or 2^31 output rows at r=2: past
-    the kernel's 32-bit in-row offsets and its grid. Uninitialised bf16,
-    2 and 8 GiB."""
+    """At r=2 in bf16: 131072 staged segments in one row (the grid's y
+    takes 65535), 2^31 input rows (its x takes 2^31 - 1), and one LR pixel
+    of 65544 bytes (the staged tile takes 64 KiB). Uninitialised, 2 GiB,
+    16 GiB and 64 KiB."""
     x = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
     before = depth_to_space.launches
     with pytest.raises(ValueError, match="fewer than 2"):
@@ -359,3 +429,21 @@ def test_int8_fused_kernel_requires_packed_weights(cuda):
         conv_int8_fused(x, q_w, torch.tensor(1.0, device=cuda),
                         torch.ones(4, device=cuda))
     assert conv_int8_fused.launches == before
+
+
+@pytest.mark.cuda
+def test_int8_scales_on_the_card_equal_the_cpus(cuda):
+    """The kernel scales and the dynamic activation scales divide by 127
+    as the CPU (and the JAX package) does, bit for bit: PyTorch's CUDA
+    division by a Python number multiplies by 1/127, one ulp off for some
+    values, which changed the static int8 forward on the card."""
+    from sr_torch.quant import activation_scale, quantize_kernel
+
+    gen = torch.Generator().manual_seed(8)
+    kernel = torch.randn((3, 3, 64, 4096), generator=gen)
+    q_c, s_c = quantize_kernel(kernel.to(cuda))
+    q_h, s_h = quantize_kernel(kernel)
+    assert torch.equal(s_c.cpu(), s_h) and torch.equal(q_c.cpu(), q_h)
+    x = torch.rand((4096, 3, 5, 2), generator=gen) * 7
+    assert torch.equal(activation_scale(x.to(cuda)).cpu(),
+                       activation_scale(x))

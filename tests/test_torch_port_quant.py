@@ -44,6 +44,7 @@ from sr_torch.quant import (
     quantized_apply, to_u8)
 from sr_torch.serve import SRService, serve_background
 from sr_torch.utils.interop import from_jax_params
+from test_torch_port_d2s_bias import with_random_biases
 from test_torch_port_serve import _img, _png, edsr_params  # noqa: F401
 
 torch.set_num_threads(1)
@@ -216,6 +217,34 @@ def test_quantized_apply_equals_jax_bit_for_bit(mode, scale, dtype):
                                           train=False))
     got = quantized_apply(tm, torch.from_numpy(x), scales=scales)
     assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["per_channel", "dynamic"])
+def test_quantized_apply_with_random_biases_equals_jax_bit_for_bit(mode,
+                                                                   dtype):
+    """Every conv's bias nonzero, the PS convs' too. Under the int8
+    interceptor the int8 conv adds a PS conv's bias in its store and the
+    shuffle adds none, as ``sr.quant`` does: a bias added twice or dropped
+    breaks the equality. The JAX package calibrates the scales (on the
+    biased float graph); the port's calibration on the same graph agrees
+    within rtol 1e-6."""
+    jm, v, _, x = _edsr_pair(4, seed=5, dtype=dtype)
+    params = with_random_biases(v["params"], 5)
+    assert np.abs(params["upsample_1"]["Conv_0"]["bias"]).min() > 0
+    tdt = getattr(torch, dtype)
+    tm = from_jax_params(Net(3, 16, 2, 4, dtype=tdt), params)
+    scales = None
+    if mode != "dynamic":
+        scales = jax_calibrate(jm, {"params": params}, x, train=False)
+        if dtype == "float32":
+            ours = calibrate_scales(tm, torch.from_numpy(x))
+            for k in scales:
+                np.testing.assert_allclose(ours[k], scales[k], rtol=1e-6)
+    want = np.asarray(jax_quantized_apply(jm, {"params": params}, x,
+                                          scales=scales, train=False))
+    got = quantized_apply(tm, torch.from_numpy(x), scales=scales)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
