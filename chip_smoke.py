@@ -35,6 +35,22 @@ Phases; any failure raises and exits non-zero without the final line:
    no add over a shuffled conv's output (the shuffle adds that bias), the
    int8 profiles no quantize pass (its ``round`` kernel).
 
+6. Train full-width EDSR ×4 (bf16 compute, crop 64, b32, the synthetic
+   corpus in a 'matrix' ``PatchPipeline`` on the card, bench.py's train
+   axis): the shuffle under autograd bit for bit against its plain version
+   at the training shapes, with its forward and backward times; one f32
+   step card vs CPU; the pre-shuffle modes against the default (every
+   parameter with a gradient, 2/1/0 shuffle launches a step); then the
+   train path with its counts zeroed just before and read just after:
+   K=40 and K=120 dispatches (marginal steps/s), one ``fit`` epoch with a
+   checkpoint that must restore exactly, and ``predict`` (the resblock
+   kernel), whose every block must then agree with the plain block on its
+   own input and whose output with the plain one. The loss must fall; the
+   step's layers (events around the trainer's own stages) and a profile
+   follow;
+   the trained weights must serve through ``upscale``, and the folded tail
+   must equal the exact graph.
+
 It prints a ``{"kernels": [...]}`` JSON line, then the card line, then as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -46,6 +62,7 @@ import importlib.metadata
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -187,6 +204,35 @@ def _kernel_operands(ops):
     return x, w1, b1, w2, b2
 
 
+def _resblock_bound(x) -> tuple[float, str]:
+    """The least time of one block on ``x`` (B, H, W, C): two 3×3 convs'
+    products at the peak rate of x's type, or x read and the output
+    written, the two (9·C, C) weights read and the f32 biases read."""
+    c = x.shape[-1]
+    flops = 2 * 2 * x.numel() * 9 * c
+    nbytes = (2 * x.numel() + 2 * 9 * c * c) * x.element_size() + 2 * c * 4
+    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _resblock_library(x, w1, b1, w2, b2, res_scale: float = 1.0):
+    """The block as PyTorch's convs (cuDNN) on channels-last operands, in
+    x's type: the library call of the resblock rows."""
+    c = x.shape[-1]
+    xc = x.permute(0, 3, 1, 2)
+    k1, k2 = (w.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for w in (w1, w2))
+    lb1, lb2 = b1.to(x.dtype), b2.to(x.dtype)
+
+    def library():
+        h = F.conv2d(F.relu(F.conv2d(xc, k1, lb1, padding=1)), k2, lb2,
+                     padding=1)
+        return xc + (h if res_scale == 1.0 else h * res_scale)
+
+    return library
+
+
 def _d2s_operands(shape, dtype, gen, with_bias):
     """A shuffle's input, and a bias of its channels (None for u8)."""
     if dtype == torch.uint8:
@@ -322,40 +368,28 @@ def phase_kernels(card: str) -> list[dict]:
         shape = (16, 128, 128, 64)
         ops = _resblock_operands(shape, dtype, gen)
         x, w1, b1, w2, b2 = ops
-        c = shape[-1]
         kops = _kernel_operands(ops)
         t_k = kernel_ms(lambda: fused_resblock(*kops))
         t_p = kernel_ms(lambda: fused_resblock_plain(x, w1, b1, w2, b2))
-        xc = x.permute(0, 3, 1, 2)
-        k1, k2 = (w.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last) for w in (w1, w2))
-        lb1, lb2 = b1.to(dtype), b2.to(dtype)
-        def library():
-            return xc + F.conv2d(F.relu(F.conv2d(xc, k1, lb1, padding=1)),
-                                 k2, lb2, padding=1)
-
+        library = _resblock_library(*ops)
         t_l = kernel_ms(library)  # PyTorch's default: TF32 for f32 convs
         with no_tf32():
             t_l32 = kernel_ms(library)
-        flops = 2 * 2 * x.numel() * 9 * c
-        nbytes = (2 * x.numel() + 2 * 9 * c * c) * x.element_size() + 2 * c * 4
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
+        bound, bound_by = _resblock_bound(x)
         tf32 = (f" (TF32 on); TF32 off {t_l32:.4f} ms"
                 if dtype == torch.float32 else "")
         print(f"[3] fused_resblock {shape} {str(dtype)[6:]}: kernel "
               f"{t_k:.4f} ms, plain {t_p:.4f} ms, conv-relu-conv-add "
               f"{t_l:.4f} ms{tf32}, bound {bound:.4f} ms "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'}) | {card}")
+              f"({bound_by}) | {card}")
         if dtype == torch.bfloat16:
             entries.append(dict(
                 name="fused_resblock", route="cuda",
                 source="sr_torch/kernels/csrc/fused_resblock.cu",
                 replaces="sr/kernels/fused_resblock.py:119", launches=None,
                 max_abs_err=main_err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=t_l, shape=list(shape), dtype="bfloat16"))
+                bound_by=bound_by, library_ms=t_l, shape=list(shape),
+                dtype="bfloat16"))
         else:  # the f32 body's numbers ride on the same entry
             entries[-1].update(f32_ms=t_k, f32_plain_ms=t_p,
                                f32_bound_ms=bound, f32_library_ms=t_l,
@@ -875,12 +909,12 @@ def phase_throughput(path: Path, card: str) -> None:
             check(not passes, f"{name} still runs quantize passes: {passes}")
 
 
-def profile_batches(fn, name: str, card: str, n: int = 5
-                    ) -> tuple[list[str], list[list]]:
-    """Device time by kernel over ``n`` batches, and the device's busy
-    share of the window from the first to the last kernel (torch.profiler).
-    Returns the names of the kernels seen and the input shapes of every
-    ``aten::add``/``aten::add_`` op."""
+def profile_batches(fn, name: str, card: str, n: int = 5, tag: str = "[5]",
+                    unit: str = "batch") -> tuple[list[str], list[list]]:
+    """Device time by kernel over ``n`` calls of ``fn`` (a batch, or a
+    ``unit``), and the device's busy share of the window from the first to
+    the last kernel (torch.profiler). Returns the names of the kernels seen
+    and the input shapes of every ``aten::add``/``aten::add_`` op."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -892,9 +926,12 @@ def profile_batches(fn, name: str, card: str, n: int = 5
     events = list(prof.events())
     adds = [e.input_shapes for e in events
             if e.name in ("aten::add", "aten::add_")]
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    # device-side ranges of user annotations (the optimizer's
+    # ``Optimizer.step#Adam.step``) span kernels and are not kernels
+    kernels = [e for e in events if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        print(f"[5] profile {name}: the profiler saw no device time "
+        print(f"{tag} profile {name}: the profiler saw no device time "
               "(not measured)")
         return [], adds
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -913,13 +950,482 @@ def profile_batches(fn, name: str, card: str, n: int = 5
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
-    print(f"[5] profile {name}: device busy {busy / n / 1e3:.3f} ms/batch of "
-          f"a {window / n / 1e3:.3f} ms/batch window "
+    print(f"{tag} profile {name}: device busy {busy / n / 1e3:.3f} ms/{unit} "
+          f"of a {window / n / 1e3:.3f} ms/{unit} window "
           f"({100 * busy / window:.1f}% busy) | {card}")
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[5]   {us / n / 1e3:8.3f} ms/batch {100 * us / total:5.1f}%  "
+        print(f"{tag}   {us / n / 1e3:8.3f} ms/{unit} {100 * us / total:5.1f}%  "
               f"{kname[:150]}")
     return list(by_name), adds
+
+
+#: the train axis of bench.py: EDSR ×4 bf16, crop 64, b32, K-step dispatches
+TRAIN_CROP, TRAIN_BATCH, TRAIN_K, TRAIN_REPEATS = 64, 32, (40, 120), 3
+TRAIN_EPOCH = 40  # steps in fit's epoch, two dispatches of 20
+#: the training shuffles at crop 64 b32 (16² LR): the PS stages' (H, C·r²)
+TRAIN_D2S = ((16, 256), (32, 256))
+
+
+def _grads(model) -> dict[str, torch.Tensor]:
+    """Every parameter's gradient on the CPU in f32; each must exist and be
+    nonzero (a kernel without a backward would leave the layers before it
+    without one)."""
+    missing = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    check(not missing, f"no gradient reached {missing}")
+    return {n: p.grad.detach().float().cpu() for n, p in
+            model.named_parameters()}
+
+
+def _train_d2s(card: str, gen) -> list[dict]:
+    """(b) The shuffle under autograd at the training shapes, bf16, with the
+    PS conv's bias, without and with the fused ReLU: forward and the
+    gradients of x and of the bias through the kernel equal autograd
+    through the plain version, bit for bit. Times of the forward (kernel,
+    plain, F.pixel_shuffle) and of the backward (the plain transpose the
+    kernel's Function runs, and F.pixel_unshuffle), beside their bounds."""
+    from sr_torch.kernels.depth_to_space import (
+        depth_to_space, depth_to_space_plain)
+
+    rows = []
+    for h, cin in TRAIN_D2S:
+        shape = (TRAIN_BATCH, h, h, cin)
+        x0, b0 = _d2s_operands(shape, torch.bfloat16, gen, True)
+        g = torch.randn((TRAIN_BATCH, 2 * h, 2 * h, cin // 4), device="cuda",
+                        generator=gen).bfloat16()
+        for act in (None, "relu"):
+            got = []
+            for fn in (depth_to_space, depth_to_space_plain):
+                x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+                y = fn(x, 2, act, b)
+                y.backward(g)
+                got.append((y.detach(), x.grad, b.grad))
+            torch.cuda.synchronize()
+            for name, k, p in zip(("forward", "grad x", "grad bias"), *got):
+                check(k.dtype == p.dtype and torch.equal(k, p),
+                      f"depth_to_space {name} under autograd differs from "
+                      f"the plain version at {shape} act={act}")
+        print(f"[6] depth_to_space {shape} r=2 bf16 under autograd, with the "
+              "bias, act None and relu: forward, grad x and grad bias == "
+              "plain autograd (bit for bit)")
+        x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+        y = depth_to_space(x, 2, None, b)
+        xc = x0.permute(0, 3, 1, 2)
+        gc = g.permute(0, 3, 1, 2)
+        t_k = kernel_ms(lambda: depth_to_space(x0, 2, None, b0))
+        t_p = kernel_ms(lambda: depth_to_space_plain(x0, 2, None, b0))
+        t_l = kernel_ms(lambda: F.pixel_shuffle(xc, 2))
+        t_bw = kernel_ms(lambda: torch.autograd.grad(y, (x, b), g,
+                                                     retain_graph=True))
+        t_lbw = kernel_ms(lambda: F.pixel_unshuffle(gc, 2))
+        nbytes = 2 * x0.numel() * x0.element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[6] depth_to_space {shape} r=2 bf16 (train forward, with "
+              f"bias): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"F.pixel_shuffle {t_l:.4f} ms, bound {bound:.4f} ms (bytes); "
+              f"backward (plain transpose + bias sum) {t_bw:.4f} ms, "
+              f"F.pixel_unshuffle {t_lbw:.4f} ms, bound {bound:.4f} ms "
+              f"| {card}")
+        rows.append(dict(
+            name="depth_to_space", route="cuda",
+            source="sr_torch/kernels/csrc/depth_to_space.cu",
+            replaces="sr/kernels/depth_to_space.py:73", launches=None,
+            max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound,
+            bound_by="bytes", library_ms=t_l, shape=list(shape),
+            dtype="bfloat16", path="train forward (PS conv bias inside)",
+            backward_ms=t_bw, backward_bound_ms=bound,
+            backward_library_ms=t_lbw))
+        del x0, b0, g, x, b, y, xc, gc
+    return rows
+
+
+def _step_card_vs_cpu(cfg, batch) -> None:
+    """(c) One f32 full-width step on the card (TF32 off) against the CPU's
+    from the same weights and batch: the loss within 1e-5 and every
+    gradient within 1e-3 of its largest entry (float32 summation order;
+    1e-5 to 6e-6 is what f32 against f64 shows on the CPU)."""
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.precision import no_tf32
+
+    cfg32 = cfg.replace(dtype="float32")
+    grads, losses = [], []
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg32, device=device)
+        st = tr.init_state(5)
+        b = {k: v.to(device) for k, v in batch.items()}
+        with no_tf32():
+            loss, _ = tr.loss_fn(st.model, b, 0)
+            loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append(_grads(st.model))
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst = max((float((grads[0][n] - g).abs().max() / g.abs().max()), n)
+                for n, g in grads[1].items())
+    print(f"[6] f32 train step, card vs CPU (TF32 off): loss {losses[0]:.6f} "
+          f"vs {losses[1]:.6f} (rel {loss_err:.2e}, tol 1e-5); worst "
+          f"gradient {worst[1]} rel {worst[0]:.2e} (tol 1e-3)")
+    check(loss_err <= 1e-5 and worst[0] <= 1e-3,
+          "the card's f32 train step differs from the CPU's")
+
+
+def _preshuffle_modes(cfg, batch) -> None:
+    """(a) and (e): per mode the shuffle's launches per step (2 with the
+    pre-shuffle loss off, 1 'last', 0 'full'); each mode's loss and
+    gradients from the same weights and batch against the default mode's,
+    within bf16 tolerance (loss 1e-3 relative, each gradient's L2 error
+    5e-2 of its norm; the CPU at full width shows 2e-4 and 5e-3)."""
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.train.trainer import Trainer
+
+    ref = None
+    for mode, per_step in ((False, 2), ("last", 1), ("full", 0)):
+        tr = Trainer(cfg.replace(preshuffle_loss=mode))
+        st = tr.init_state(3)
+        d0 = depth_to_space.launches
+        loss, _ = tr.loss_fn(st.model, batch, 0)
+        loss.backward()
+        torch.cuda.synchronize()
+        fwd_bwd = depth_to_space.launches - d0
+        out = (float(loss.detach()), _grads(st.model))
+        d0 = depth_to_space.launches
+        tr.train_step(st, batch)
+        step = depth_to_space.launches - d0
+        name = mode or "off"
+        print(f"[6] preshuffle_loss={name}: all {len(out[1])} parameters "
+              f"have a nonzero gradient; depth_to_space launches per "
+              f"forward+backward {fwd_bwd}, per train step {step} (want "
+              f"{per_step})")
+        check(fwd_bwd == step == per_step,
+              f"preshuffle_loss={name}: {step} shuffle launches a step")
+        if ref is None:
+            ref = out
+            continue
+        loss_err = abs(out[0] - ref[0]) / abs(ref[0])
+        worst = max((float((g - ref[1][n]).norm() / ref[1][n].norm()), n)
+                    for n, g in out[1].items())
+        print(f"[6] preshuffle_loss={name} vs off, bf16: loss rel "
+              f"{loss_err:.2e} (tol 1e-3); worst gradient {worst[1]} L2 rel "
+              f"{worst[0]:.2e} (tol 5e-2)")
+        check(loss_err <= 1e-3 and worst[0] <= 5e-2,
+              f"preshuffle_loss={name} differs from the default mode")
+
+
+class _Marked:
+    """Calls ``fn`` and then ``mark()``; with ``first``, ``mark()`` before
+    as well. Stands in for one stage of the trainer's own step, so the
+    events fall between its stages."""
+
+    def __init__(self, fn, mark, first=False):
+        self.fn, self.mark, self.first = fn, mark, first
+
+    def __call__(self, *args, **kwargs):
+        if self.first:
+            self.mark()
+        out = self.fn(*args, **kwargs)
+        self.mark()
+        return out
+
+
+def _train_layers(tr, state, pipe, card: str, n: int = 20) -> None:
+    """Where a step's time goes: the trainer's own ``make_multi_step(pipe,
+    1)``, with a CUDA event and a host clock reading taken before the
+    sampler and after each of its stages: the sampler (the pipeline's
+    call), the forward with the loss (``Trainer.loss_fn``), the backward
+    (up to the recipe's update) and the optimizer (``Recipe.step``). Each
+    stretch is device time, which includes any wait for the host, and the
+    host's own time to queue it."""
+    names = ("sampler", "forward+loss", "backward", "optimizer")
+    marks = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, time.perf_counter()))
+
+    class Tx:  # the recipe, with a mark on entry and on exit of its step
+        def __init__(self, tx):
+            self.tx = tx
+            self.step = _Marked(tx.step, mark, first=True)
+
+    tx = state.tx
+    tr.loss_fn = _Marked(tr.loss_fn, mark)
+    state.tx = Tx(tx)
+    step = tr.make_multi_step(_Marked(pipe, mark, first=True), 1)
+    dev = {k: [] for k in names}
+    host = {k: [] for k in names}
+    try:
+        for _ in range(n):
+            marks.clear()
+            step(state)
+            torch.cuda.synchronize()
+            # before sampler, after sampler, after loss_fn, before and
+            # after the optimizer's update
+            check(len(marks) == 5, f"{len(marks)} marks in a train step")
+            for i, k in enumerate(names):
+                (e0, t0), (e1, t1) = marks[i], marks[i + 1]
+                dev[k].append(e0.elapsed_time(e1))
+                host[k].append((t1 - t0) * 1e3)
+    finally:
+        del tr.loss_fn
+        state.tx = tx
+    parts = ", ".join(f"{k} {statistics.median(dev[k]):.3f} ms (host "
+                      f"{statistics.median(host[k]):.3f})" for k in names)
+    total = sum(statistics.median(dev[k]) for k in names)
+    print(f"[6] train step by layer (median of {n}, CUDA events around the "
+          f"trainer's stages; host = enqueue time): {parts}; sum "
+          f"{total:.3f} ms | {card}")
+
+
+def _train_predict(state, x, sr_out, card: str, launches: int) -> dict:
+    """The resblock kernel at the shape the trainer's ``predict`` gives it.
+    A second predict on ``x`` with a hook on each body block: the hook holds
+    the kernel's output against ``fused_resblock_plain`` on the input the
+    block received, within two bf16 ulps of the output's largest magnitude
+    (the block rounds its conv sum and its residual add) and never below
+    phase 3's 2e-2, and hands the plain output on. That predict is then
+    the plain one, held against ``sr_out``, the kernel's, within 1e-2 in
+    relative L2; and against the float32 predict of the same weights, the
+    kernel's may be no further off than 1.25 times the plain one's plus
+    1e-3. Times at this shape, with the first block's weights and input.
+    Returns the row of the kernels line."""
+    from sr_torch.kernels.fused_resblock import (
+        fused_resblock, fused_resblock_plain, pack_weights)
+    from sr_torch.utils.precision import no_tf32
+
+    errs, seen = [], []
+
+    def hook(blk, args, out):
+        x_in = args[0].to(blk.dtype).permute(0, 2, 3, 1).contiguous()
+        w1, b1, w2, b2 = pack_weights(blk.Conv_0.weight, blk.Conv_0.bias,
+                                      blk.Conv_1.weight, blk.Conv_1.bias)
+        ops = (x_in, w1.to(blk.dtype), b1, w2.to(blk.dtype), b2)
+        want = fused_resblock_plain(*ops, res_scale=blk.res_scale)
+        amax = float(want.float().abs().max())
+        tol = max(TOL[torch.bfloat16],
+                  2.0 ** (np.floor(np.log2(max(amax, 1e-30))) - 6))
+        err = float((out.permute(0, 2, 3, 1).float() - want.float())
+                    .abs().max())
+        errs.append((err, tol, amax))
+        if not seen:
+            seen.append((blk, ops))
+        return want.permute(0, 3, 1, 2)
+
+    blocks = list(state.model.blocks)
+    handles = [blk.register_forward_hook(hook) for blk in blocks]
+    try:
+        with torch.no_grad():
+            state.model.eval()
+            plain_out = state.model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    check(len(errs) == len(blocks), "a body block was not checked")
+    shape = tuple(seen[0][1][0].shape)
+    worst = max(errs, key=lambda e: e[0] / e[1])
+    print(f"[6] fused_resblock {shape} bf16 in predict, each of "
+          f"{len(errs)} blocks on its own input vs fused_resblock_plain: "
+          f"max abs err {max(e[0] for e in errs):.3g}; worst against its "
+          f"tolerance {worst[0]:.3g} (tol {worst[1]:.3g}, output up to "
+          f"{worst[2]:.3g})")
+    check(all(err <= tol for err, tol, _ in errs),
+          "fused_resblock disagrees with its plain version in predict")
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    rel = rel_l2(sr_out, plain_out)
+    dmax = float((sr_out.float() - plain_out.float()).abs().max())
+    # the scale of bf16 rounding: both bf16 predicts against the same
+    # weights' float32 predict (TF32 off)
+    with no_tf32(), torch.no_grad():
+        ref32 = state.model.clone(torch.float32)(x)
+    e_k, e_p = rel_l2(sr_out, ref32), rel_l2(plain_out, ref32)
+    print(f"[6] predict through the kernel vs predict through "
+          f"fused_resblock_plain, bf16 {tuple(x.shape)}: rel L2 {rel:.3g} "
+          f"(tol 1e-2), max abs {dmax:.3g}; against the f32 predict: kernel "
+          f"{e_k:.3g}, plain {e_p:.3g} (kernel tol 1.25 x plain + 1e-3)")
+    check(rel <= 1e-2 and e_k <= 1.25 * e_p + 1e-3,
+          "predict through the kernel differs from the plain predict")
+    blk, ops = seen[0]
+    kops = (ops[0], *blk.packed())
+    t_k = kernel_ms(lambda: fused_resblock(*kops, res_scale=blk.res_scale))
+    t_p = kernel_ms(lambda: fused_resblock_plain(*ops,
+                                                 res_scale=blk.res_scale))
+    t_l = kernel_ms(_resblock_library(*ops, res_scale=blk.res_scale))
+    bound, bound_by = _resblock_bound(ops[0])
+    print(f"[6] fused_resblock {shape} bf16 (train predict): kernel "
+          f"{t_k:.4f} ms, plain {t_p:.4f} ms, conv-relu-conv-add "
+          f"{t_l:.4f} ms, bound {bound:.4f} ms ({bound_by}) | {card}")
+    return dict(
+        name="fused_resblock", route="cuda",
+        source="sr_torch/kernels/csrc/fused_resblock.cu",
+        replaces="sr/kernels/fused_resblock.py:119", launches=launches,
+        max_abs_err=max(e[0] for e in errs), ms=t_k, plain_ms=t_p,
+        bound_ms=bound, bound_by=bound_by, library_ms=t_l, shape=list(shape),
+        dtype="bfloat16", path="train predict")
+
+
+def phase_train(card: str, d2s_entry: dict, resblock_entry: dict
+                ) -> list[dict]:
+    """Train full-width EDSR ×4 (bf16 compute, f32 weights) on the card
+    through the port's entry points: SyntheticDataset(32, 160², seed 100),
+    PatchPipeline 'matrix' on the card, crop 64, b32 (bench.py's train
+    axis); make_multi_step at K=40 and K=120, fit for one short epoch with
+    a checkpointer, predict, then serve the trained weights. Launch counts
+    are zeroed just before that run and read just after. Returns the
+    shuffle's training-shape entries and the resblock's entry at the shape
+    of the trainer's predict."""
+    import tempfile
+
+    from sr_torch.data.datasets import SyntheticDataset
+    from sr_torch.data.pipeline import PatchPipeline
+    from sr_torch.infer import upscale
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+    from sr_torch.kernels.shuffle_fold import make_folded_tail_predict
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.checkpoint import Checkpointer, run_meta, save_params
+    from sr_torch.utils.config import SRConfig
+    from sr_torch.utils.interop import to_jax_params
+    from sr_torch.utils.precision import no_tf32
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = _train_d2s(card, gen)
+    ds = SyntheticDataset(num_images=32, size=(160, 160), channels=3,
+                          seed=100)
+    pipe = PatchPipeline([ds[i] for i in range(len(ds))],
+                         crop_size=TRAIN_CROP, scale_factor=4,
+                         batch_size=TRAIN_BATCH, channels=3)
+    cfg = SRConfig(model_name="EDSR", num_channels=3, scale_factor=4,
+                   crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH,
+                   dtype="bfloat16", steps_per_epoch=TRAIN_EPOCH,
+                   steps_per_dispatch=TRAIN_EPOCH // 2,
+                   log_every=TRAIN_EPOCH // 2, save_epochs=1)
+    batch = pipe(torch.Generator(device="cuda").manual_seed(7))
+    _step_card_vs_cpu(cfg, batch)
+    _preshuffle_modes(cfg, batch)
+
+    tr = Trainer(cfg)
+    state = tr.init_state(1)
+    print(f"[6] EDSR x4 train: {tr.num_params(state)} params, bf16 compute, "
+          f"crop {TRAIN_CROP} b{TRAIN_BATCH}, PatchPipeline "
+          f"'{pipe.random_scale_mode}' on {pipe.bank.device} "
+          f"{tuple(pipe.bank.shape)}")
+    multi = {k: tr.make_multi_step(pipe, k) for k in TRAIN_K}
+    # K steps queue with no host sync: PyTorch raises on any synchronizing
+    # call inside this mode (after one warm-up dispatch, which sets up
+    # cuDNN and cuBLAS)
+    probe, step3 = tr.init_state(4), tr.make_multi_step(pipe, 3)
+    step3(probe)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step3(probe)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("[6] a K=3 dispatch made no host sync "
+          "(torch.cuda.set_sync_debug_mode('error'))")
+    del probe, step3
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=out_dir)
+
+    # ---- the train path: counts zeroed just before, read just after ----
+    depth_to_space.launches = 0
+    fused_resblock.launches = 0
+    dispatch_loss, times = [], {k: [] for k in TRAIN_K}
+    for rep in range(TRAIN_REPEATS + 1):  # the first round warms up
+        for k in TRAIN_K:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            m = multi[k](state)
+            end.record()
+            torch.cuda.synchronize()
+            dispatch_loss.append(float(m["loss"]))
+            if rep:
+                times[k].append(start.elapsed_time(end))
+    steps_run = state.step
+    ckpt = Checkpointer(ckpt_dir, meta=run_meta(cfg))
+    epoch = state.step // cfg.steps_per_epoch
+    state = tr.fit(state, pipe, num_epochs=epoch + 1, checkpointer=ckpt)
+    check(state.step == steps_run + cfg.steps_per_epoch,
+          f"fit ran {state.step - steps_run} steps")
+    sr_out = tr.predict(state, batch["lr"])
+    torch.cuda.synchronize()
+    launches = {"depth_to_space": depth_to_space.launches,
+                "fused_resblock": fused_resblock.launches}
+    print(f"[6] train-path launches over {state.step} steps and one "
+          f"predict: {launches} (want {2 * state.step + 2} and 16)")
+    check(launches == {"depth_to_space": 2 * state.step + 2,
+                       "fused_resblock": 16},
+          "the train path did not run 2 shuffles a step and the resblock "
+          "kernel in predict")
+    for row in rows:
+        row["launches"] = launches["depth_to_space"]
+    d2s_entry["train_launches"] = launches["depth_to_space"]
+    resblock_entry["train_launches"] = launches["fused_resblock"]
+    check(bool(torch.isfinite(sr_out.float()).all()),
+          "predict after training is not finite")
+    rows.append(_train_predict(state, batch["lr"], sr_out, card,
+                               launches["fused_resblock"]))
+
+    # ---- throughput: marginal steps per second between K=40 and K=120
+    k_s, k_l = TRAIN_K
+    marg = [(k_l - k_s) / ((t_l - t_s) / 1e3)
+            for t_s, t_l in zip(times[k_s], times[k_l])]
+    steps_s = statistics.median(marg)
+    for k in TRAIN_K:
+        per_step = statistics.median(times[k]) / k
+        print(f"[6] K={k} dispatches: "
+              + ", ".join(f"{t:.1f}" for t in times[k])
+              + f" ms ({per_step:.3f} ms/step)")
+    print(f"[6] EDSR x4 bf16 train, crop {TRAIN_CROP} b{TRAIN_BATCH}: "
+          f"{steps_s:.1f} steps/s marginal (K={k_s}->{k_l}, median of "
+          f"{TRAIN_REPEATS}; {', '.join(f'{v:.1f}' for v in marg)}), "
+          f"{1e3 / steps_s:.3f} ms/step | {card}")
+    print(f"[6] mean loss per dispatch: first {dispatch_loss[0]:.5f}, last "
+          f"{dispatch_loss[-1]:.5f}")
+    check(dispatch_loss[-1] < dispatch_loss[0], "(d) the loss did not fall")
+
+    # ---- exact resume from the epoch's checkpoint
+    restored = ckpt.restore(tr.init_state(99))
+    check(restored.step == state.step and all(
+        torch.equal(p, q) for p, q in zip(restored.model.parameters(),
+                                          state.model.parameters()))
+          and torch.equal(restored.generator.get_state(),
+                          state.generator.get_state()),
+          "the checkpoint did not restore the trained state")
+    print(f"[6] checkpoint at step {ckpt.latest_step()} restores the state "
+          "(weights, step, generator) exactly")
+
+    # ---- where the time goes
+    _train_layers(tr, state, pipe, card)
+    step1 = tr.make_multi_step(pipe, 1)
+    profile_batches(lambda: step1(state), "train step", card, n=10,
+                    tag="[6]", unit="step")
+
+    # ---- (f) the trained weights serve; (g) the folded tail is exact
+    path = out_dir / "EDSR_x4_trained.npz"
+    save_params(str(path), to_jax_params(state.model))
+    img = np.random.default_rng(2).integers(0, 256, (96, 80, 3), np.uint8)
+    served = upscale(img, "EDSR", str(path), scale_factor=4, device="cuda")
+    check(served.shape == (384, 320, 3) and served.dtype == np.uint8,
+          f"serving the trained weights gave {served.shape} {served.dtype}")
+    print(f"[6] the trained weights serve through upscale: {served.shape} "
+          f"uint8, mean {served.mean():.1f}")
+    m32 = state.model.clone(torch.float32)
+    x = batch["lr"][:4]
+    with no_tf32(), torch.no_grad():
+        d0 = depth_to_space.launches
+        folded = make_folded_tail_predict(m32)(x)
+        d_folded = depth_to_space.launches - d0
+        exact = m32(x)
+    err = float((folded - exact).abs().max())
+    print(f"[6] make_folded_tail_predict vs the exact graph, f32 (TF32 off): "
+          f"max abs err {err:.2e} (tol 1e-4), {d_folded} shuffle launches")
+    check(err <= 1e-4 and d_folded == 2, "the folded tail differs")
+    shutil.rmtree(ckpt_dir)
+    return rows
 
 
 def main() -> int:
@@ -936,6 +1442,7 @@ def main() -> int:
     phase_int8_serve(path, int8_entry, outs)
     entries.append(int8_entry)
     phase_throughput(path, card)
+    entries += phase_train(card, entries[0], entries[1])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -9,4 +9,7 @@ takes the kernel's plain PyTorch version instead.
 
 Slices 1 and 2 serve EDSR ×4 in float and int8: ``sr_torch.infer.upscale``
 (``quantize=...``) and ``python -m sr_torch.serve`` (``--quantize``).
+Slice 5 trains it: ``sr_torch.data.pipeline.PatchPipeline`` on the card and
+``sr_torch.train.trainer.Trainer`` (K steps per dispatch, full-state
+checkpoints with exact resume).
 """

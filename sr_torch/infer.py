@@ -31,19 +31,10 @@ from sr_torch.models.registry import get_spec
 from sr_torch.quant import make_quantized_predict, to_u8
 from sr_torch.utils.checkpoint import load_params
 from sr_torch.utils.config import SRConfig
+from sr_torch.utils.device import resolve_device
 from sr_torch.utils.interop import from_jax_params
 
 _LATER = "lands in a later port slice"
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``torch.device(device)``, refusing CUDA when no card is visible."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' requested but torch.cuda.is_available() is false; "
-            "pass device='cpu' to run the plain PyTorch versions")
-    return device
 
 
 def make_serving_predict(model, fused: bool, quantize: bool | str = False,

@@ -1,0 +1,148 @@
+"""Pillow-parity resampling as two float32 matrix products.
+
+Port of the training half of ``sr/kernels/bicubic.py``. The reference
+degrades HR images to LR with ``PIL.Image.resize(..., BICUBIC)``, whose
+resampler widens its support by the scale factor on downscale and runs two
+separable passes (horizontal first) with the intermediate image clamped to
+[0, 255]. For a fixed (in_size, out_size) pair the per-output-pixel weights
+are constant, so a resize is two dense products with precomputed matrices.
+
+The coefficient code (:func:`precompute_coeffs`, :func:`resize_matrix`) is
+the port's own numpy copy; :func:`resize2d` runs the products in float32
+with ``torch.einsum``. Pillow's bit-exact uint8 path (``pil_resize_exact_u8``,
+``img_interp``, ``resize2d_unit``) comes with the eval slice. No Pallas
+kernel lives here: the JAX package leaves these products to XLA too.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+#: Pillow filter supports (libImaging/Resample.c struct filters).
+_SUPPORT = {"bicubic": 2.0, "bilinear": 1.0, "box": 0.5}
+
+
+def _bicubic_filter(x: np.ndarray, a: float = -0.5) -> np.ndarray:
+    """Keys cubic convolution kernel with a=-0.5 (Pillow's bicubic)."""
+    x = np.abs(x)
+    return np.where(
+        x < 1.0,
+        ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0,
+        np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * a, 0.0),
+    )
+
+
+def _bilinear_filter(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _box_filter(x: np.ndarray) -> np.ndarray:
+    return np.where((x > -0.5) | (x == -0.5), np.where(x < 0.5, 1.0, 0.0), 0.0)
+
+
+_FILTERS = {
+    "bicubic": _bicubic_filter,
+    "bilinear": _bilinear_filter,
+    "box": _box_filter,
+}
+
+
+def precompute_coeffs(
+    in_size: int, out_size: int, filter: str = "bicubic"
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-output-pixel resampling taps, exactly as Pillow computes them.
+
+    Returns ``(bounds, kk)`` where ``bounds[o]`` is the first input index
+    contributing to output pixel ``o`` and ``kk[o, :]`` the (normalized)
+    float64 tap weights (zero-padded to the common kernel size).
+    """
+    support = _SUPPORT[filter]
+    filt = _FILTERS[filter]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    sup = support * filterscale
+    ss = 1.0 / filterscale
+    ksize = int(np.ceil(sup)) * 2 + 1
+    bounds = np.zeros(out_size, dtype=np.int64)
+    kk = np.zeros((out_size, ksize), dtype=np.float64)
+    for o in range(out_size):
+        center = (o + 0.5) * scale
+        xmin = max(int(center - sup + 0.5), 0)
+        xmax = min(int(center + sup + 0.5), in_size)
+        n = xmax - xmin
+        w = filt((np.arange(n) + xmin - center + 0.5) * ss)
+        wsum = w.sum()
+        if wsum != 0.0:
+            w = w / wsum
+        bounds[o] = xmin
+        kk[o, :n] = w
+    return bounds, kk
+
+
+@functools.lru_cache(maxsize=256)
+def resize_matrix(in_size: int, out_size: int, filter: str = "bicubic") -> np.ndarray:
+    """Dense (out_size, in_size) float32 resampling matrix, cached per
+    (in, out, filter). Callers must not write to it."""
+    if in_size == out_size:
+        return np.eye(out_size, dtype=np.float32)
+    bounds, kk = precompute_coeffs(in_size, out_size, filter)
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    for o in range(out_size):
+        lo = bounds[o]
+        n = min(kk.shape[1], in_size - lo)
+        m[o, lo : lo + n] = kk[o, :n]
+    return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_matrix(in_size: int, out_size: int, filter: str,
+                   device: torch.device) -> torch.Tensor:
+    # one upload per device: a copy from pageable host memory would wait
+    # for the stream at every call
+    return torch.from_numpy(resize_matrix(in_size, out_size, filter)).to(device)
+
+
+def resize2d(
+    x: torch.Tensor,
+    out_hw: tuple[int, int],
+    filter: str = "bicubic",
+    clip: bool = True,
+) -> torch.Tensor:
+    """Pillow-parity separable resize of NHWC (or HWC/HW) float images.
+
+    ``x`` holds values in [0, 255]; ``clip`` clamps the width pass and the
+    result to [0, 255] as Pillow's uint8 passes do (pass ``clip=False`` for
+    other ranges). Both products run in float32 (``einsum`` lowers to a
+    matmul, which PyTorch keeps out of TF32 by default); the result takes
+    x's dtype.
+    """
+    h_out, w_out = out_hw
+    squeeze = x.dim() == 2, x.dim() <= 3
+    if x.dim() == 2:
+        x = x[None, :, :, None]
+    elif x.dim() == 3:
+        x = x[None]
+    _, h_in, w_in, _ = x.shape
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    if w_in != w_out:
+        mw = _device_matrix(w_in, w_out, filter, x.device)
+        xf = torch.einsum("bhwc,ow->bhoc", xf, mw)
+        if clip:
+            # Pillow clamps the intermediate pass to [0, 255] (uint8 image)
+            xf = xf.clamp(0.0, 255.0)
+    if h_in != h_out:
+        mh = _device_matrix(h_in, h_out, filter, x.device)
+        xf = torch.einsum("bhwc,oh->bowc", xf, mh)
+    if clip:
+        xf = xf.clamp(0.0, 255.0)
+    out = xf.to(dtype)
+    if squeeze[1]:
+        out = out[0]
+    if squeeze[0]:
+        out = out[..., 0]
+    return out

@@ -12,6 +12,15 @@ The tensor's device picks the path: a CPU tensor goes through
 in ``csrc/depth_to_space.cu`` (float32, bfloat16, or uint8 for the
 fused-quant tail's u8 output) or raises. Nothing falls back from the kernel
 to the plain version.
+
+Training differentiates through the shuffle: when grad is on and x or the
+bias requires it, :func:`depth_to_space` runs the same forward inside a
+``torch.autograd.Function`` whose backward is the ReLU mask, then
+:func:`space_to_depth` of the gradient for x, and its sum over B·H·W for the
+bias — how XLA transposes the JAX shuffle, which has no backward kernel
+(``sr/kernels/depth_to_space.py`` defines no VJP). So the backward is the
+plain reshape-permute on either device. Without grad the call is the bare
+forward: no saved tensors, no extra copy.
 """
 
 from __future__ import annotations
@@ -89,6 +98,27 @@ def _kernel():
     return lib, fn
 
 
+class _DepthToSpace(torch.autograd.Function):
+    """The shuffle's forward (kernel or plain) with its transpose as the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, r, act, bias):
+        out = _forward(x, r, act, bias)
+        ctx.r = r
+        ctx.save_for_backward(out if act == "relu" else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (out,) = ctx.saved_tensors
+        if out is not None:  # relu: pass the gradient where out > 0
+            grad = grad.masked_fill(out <= 0, 0)
+        grad_x = space_to_depth(grad, ctx.r)
+        grad_bias = grad_x.sum((0, 1, 2)) if ctx.needs_input_grad[3] else None
+        return grad_x, None, None, grad_bias
+
+
 def depth_to_space(x: torch.Tensor, r: int, act: str | None = None,
                    bias: torch.Tensor | None = None) -> torch.Tensor:
     """Pixel shuffle NHWC (B,H,W,C·r²) → (B,H·r,W·r,C) of ``act(x + bias)``;
@@ -97,9 +127,18 @@ def depth_to_space(x: torch.Tensor, r: int, act: str | None = None,
     CPU tensors take :func:`depth_to_space_plain`; CUDA tensors launch the
     kernel, which needs a contiguous float32, bfloat16 or uint8 tensor with
     fewer than 2^31 input rows (B·H), one LR pixel of at most 64 KiB and at
-    most 65535 of its staged segments in a row.
+    most 65535 of its staged segments in a row. With grad on and x or the
+    bias requiring it, the result carries the shuffle's backward.
     ``depth_to_space.launches`` counts the kernel's launches.
     """
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (bias is not None and bias.requires_grad)):
+        return _DepthToSpace.apply(x, r, act, bias)
+    return _forward(x, r, act, bias)
+
+
+def _forward(x: torch.Tensor, r: int, act: str | None,
+             bias: torch.Tensor | None) -> torch.Tensor:
     _check_act(act)
     if x.device.type == "cpu":
         return depth_to_space_plain(x, r, act, bias)

@@ -9,7 +9,13 @@ flax module's ``__call__``/``body``/``tail``; inside, activations are
 NCHW-logical in channels_last memory. Submodule names follow flax's
 (``head``, ``blocks.{i}``, ``body_conv``, ``upsample.{j}``, ``out_conv``),
 which ``sr_torch.utils.interop`` maps to ``blocks_{i}``/``upsample_{j}``.
-The pre-shuffle training forwards join with the training slice.
+
+The recipe is the paper's: L1 loss, Adam at 1e-4 halved every
+``cfg.lr_halve_steps`` updates. Two pre-shuffle training forwards
+(``cfg.preshuffle_loss``) fold the tail's convs through its shuffles
+(``sr_torch/kernels/shuffle_fold.py``) and take the loss in pre-shuffle
+space: 'last' folds the output conv through the last shuffle, 'full' every
+tail conv through every earlier shuffle, so no shuffle runs at all.
 """
 
 from __future__ import annotations
@@ -19,8 +25,13 @@ import copy
 import torch
 from torch import nn
 
+from sr_torch.kernels.depth_to_space import space_to_depth
+from sr_torch.kernels.shuffle_fold import (
+    conv_nhwc, fold_shuffle_conv_kernel_torch)
 from sr_torch.models.registry import ModelSpec, register
 from sr_torch.nn.blocks import ConvBlock, PSBlock, ResnetBlock
+from sr_torch.train.losses import l1_loss
+from sr_torch.train.optim import adam_with_step_halving
 
 _STAGES = {2: (2,), 3: (3,), 4: (2, 2), 8: (2, 2, 2)}
 
@@ -81,6 +92,15 @@ class Net(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _to_nhwc(self._tail(self._body(_to_nchw(x))))
 
+    def forward_preshuffle(self, x: torch.Tensor) -> torch.Tensor:
+        """Body and upsample stages with the last stage's shuffle left out:
+        the pre-shuffle activation that feeds [d2s → out_conv]. Exact:
+        EDSR's PSBlocks are act-free."""
+        h = self._body(_to_nchw(x))
+        for up in self.upsample[:-1]:
+            h = up(h)
+        return _to_nhwc(self.upsample[-1](h, shuffle=False))
+
     def clone(self, dtype: torch.dtype) -> "Net":
         """A copy computing in ``dtype`` (flax's ``model.clone(dtype=...)``)."""
         other = copy.deepcopy(self)
@@ -96,5 +116,74 @@ def _make(cfg, generator: torch.Generator | None = None) -> Net:
                generator)
 
 
-SPEC = register(ModelSpec(name="EDSR", make_model=_make, pre_upsample=False,
-                          default_channels=3, default_lr=1e-4))
+def _loss(out, batch, ctx):
+    return l1_loss(out, batch["hr"]), {}
+
+
+def _folded_conv(z, conv, factors):
+    """``conv`` (a 3×3 SAME conv after the shuffles of ``factors``, in
+    order) folded through all of them, innermost first, and run on the
+    pre-shuffle ``z`` (NHWC) from the live weights: differentiable, so the
+    gradients land in the unfolded weights."""
+    w = conv.weight.to(z.dtype).permute(2, 3, 1, 0)  # OIHW → HWIO
+    pad_lo = pad_hi = w.shape[0] // 2
+    rep = 1
+    for r in reversed(factors):
+        if pad_lo != pad_hi:
+            raise ValueError("the fold needs symmetric intermediate "
+                             f"padding, got ({pad_lo},{pad_hi})")
+        w, dmin = fold_shuffle_conv_kernel_torch(w, r, padding=pad_lo)
+        pad_lo, pad_hi = -dmin, w.shape[0] - 1 + dmin
+        rep *= r * r
+    bias = conv.bias.repeat_interleave(rep).to(z.dtype)
+    return conv_nhwc(z, w, bias, (pad_lo, pad_hi))
+
+
+def _preshuffle_train(model):
+    """Pre-shuffle training forward ('last'): body and stages with the last
+    shuffle left out, then the output conv folded through that shuffle.
+    Returns ``(apply_fn, r_last)``; the loss runs against
+    ``space_to_depth(hr, r_last)`` (L1 is permutation-invariant), so the
+    full-resolution shuffle and the 3-channel out conv leave the step."""
+    r_last = _STAGES[model.scale_factor][-1]
+
+    def apply_fn(x):
+        h = model.forward_preshuffle(x)
+        return _folded_conv(h, model.out_conv.Conv_0, (r_last,))
+
+    return apply_fn, r_last
+
+
+def _preshuffle_train_full(model):
+    """Full-tail pre-shuffle training forward ('full'): every tail conv
+    moved to LR resolution through every earlier shuffle by the exact fold
+    identity, so no shuffle runs in the forward or the backward (×4: three
+    3×3 convs at LR, 64→256→1024→48). Returns ``(apply_fn, target_fn)``;
+    ``target_fn(hr)`` is the matching space_to_depth chain, last stage's
+    factor first."""
+    factors = _STAGES[model.scale_factor]
+
+    def apply_fn(x):
+        z = model.body(x)
+        convs = [up.Conv_0 for up in model.upsample]
+        for j, conv in enumerate(convs + [model.out_conv.Conv_0]):
+            z = _folded_conv(z, conv, factors[:j])
+        return z
+
+    def target_fn(hr):
+        z = hr
+        for r in reversed(factors):
+            z = space_to_depth(z, r)
+        return z
+
+    return apply_fn, target_fn
+
+
+SPEC = register(ModelSpec(
+    name="EDSR", make_model=_make, loss=_loss,
+    # paper: lr halved every 2e5 minibatch updates (cfg.lr_halve_steps)
+    make_tx=lambda cfg: adam_with_step_halving(cfg.effective_lr,
+                                               cfg.lr_halve_steps),
+    pre_upsample=False, default_channels=3, default_lr=1e-4,
+    preshuffle_train=_preshuffle_train,
+    preshuffle_train_full=_preshuffle_train_full))

@@ -1,8 +1,11 @@
-"""Model registry: name → model factory and serving conventions.
+"""Model registry: name → model factory, serving conventions and training
+recipe.
 
-Port of ``sr/models/registry.py`` with the fields that serving reads, plus
-``default_lr`` for ``SRConfig.effective_lr``. The training recipe (loss,
-optimizer, schedule, pre-shuffle modes) joins with the training slice.
+Port of ``sr/models/registry.py``. A ``ModelSpec`` holds everything
+model-specific that the one shared trainer (``sr_torch/train/trainer.py``)
+and the serving path read: the network factory, the loss, the optimizer
+recipe, the per-step schedule context, the input convention and the
+optional pre-shuffle training forwards.
 """
 
 from __future__ import annotations
@@ -18,9 +21,30 @@ class ModelSpec:
     name: str
     # (SRConfig, torch.Generator | None) -> nn.Module taking NHWC input
     make_model: Callable[..., Any]
+    # (out, batch, ctx) -> (loss, metrics)
+    loss: Callable[[Any, dict, dict], tuple]
+    # SRConfig -> sr_torch.train.optim.Recipe
+    make_tx: Callable[[Any], Any]
+    # schedule context computed per step, fed to loss (e.g. DRCN's alpha)
+    schedule: Callable[[Any, int], dict] = lambda cfg, step: {}
     pre_upsample: bool = False  # feed bicubic-upscaled LR (SRCNN/VDSR/DRCN)
     default_channels: int = 1
     default_lr: float = 1e-3
+    is_gan: bool = False  # adversarial training (SRGAN): Trainer refuses
+    has_batchnorm: bool = False
+    # optional pre-shuffle training (models whose tail ends in a pixel
+    # shuffle): model → (apply_fn, r_last), where apply_fn(x) returns the
+    # output before the last shuffle, (B, H·r/r_last, W·r/r_last,
+    # C·r_last²); the trainer takes the loss against space_to_depth(hr)
+    # (cfg.preshuffle_loss='last')
+    preshuffle_train: Callable[[Any], tuple] | None = None
+    # full-tail variant (cfg.preshuffle_loss='full'): model → (apply_fn,
+    # target_fn), apply_fn(x) fully pre-shuffled at LR resolution and
+    # target_fn(hr) the matching space_to_depth chain
+    preshuffle_train_full: Callable[[Any], tuple] | None = None
+
+    def input_key(self) -> str:
+        return "bc" if self.pre_upsample else "lr"
 
 
 def register(spec: ModelSpec) -> ModelSpec:

@@ -11,11 +11,16 @@ the compute dtype, as in the flax blocks. Each block names its convs
 ``Conv_0``/``Conv_1`` like flax does, so a parameter's path reads the same
 in both packages.
 
-* ``ResnetBlock`` at inference calls :func:`fused_resblock` (the CUDA kernel
-  on the card, its plain version on the CPU).
+* ``ResnetBlock`` without grad calls :func:`fused_resblock` (the CUDA
+  kernel on the card, its plain version on the CPU). With grad on it runs
+  conv → ReLU → conv, ·res_scale, + x as separate differentiable ops, as
+  the JAX block does in training: the fused kernel, like the TPU kernel,
+  has no backward.
 * ``PSBlock`` runs its conv without the bias and hands the bias to
-  :func:`depth_to_space`, which adds it as it shuffles; under an
-  interceptor the intercepted conv keeps its bias and the shuffle gets none.
+  :func:`depth_to_space`, which adds it as it shuffles (and differentiates
+  through it under grad); under an interceptor the intercepted conv keeps
+  its bias and the shuffle gets none. ``shuffle=False`` returns the conv's
+  output before the shuffle, for the pre-shuffle training forwards.
 * Other convs are ``F.conv2d``: the JAX package left them to XLA, outside
   any Pallas kernel.
 * Every conv goes through :func:`_apply_conv`, which first offers it to the
@@ -147,13 +152,9 @@ class ResnetBlock(nn.Module):
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "training through ResnetBlock " + _LATER + " (the fused "
-                "kernel is inference-only); run under torch.inference_mode() "
-                "or torch.no_grad()")
-        if intercept.active() is not None:
-            # conv → relu → conv, + residual (sr/nn/blocks.py:ResnetBlock)
+        if torch.is_grad_enabled() or intercept.active() is not None:
+            # conv → relu → conv, + residual (sr/nn/blocks.py:ResnetBlock):
+            # differentiable, and each conv a site for an interceptor
             h = torch.relu(_apply_conv(self.Conv_0, x, self.dtype))
             h = _apply_conv(self.Conv_1, h, self.dtype)
             if self.res_scale != 1.0:
@@ -179,7 +180,13 @@ class PSBlock(nn.Module):
         self.Conv_0 = _conv(in_features, features * scale_factor ** 2,
                             kernel_size, 1, True, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shuffle: bool = True) -> torch.Tensor:
+        if not shuffle:
+            # the pre-shuffle tap of the training-side fold: exact only when
+            # nothing follows the conv inside this block
+            if self.act == "relu":
+                raise ValueError("shuffle=False needs an act-free PSBlock")
+            return _apply_conv(self.Conv_0, x, self.dtype)
         # the shuffle adds the conv's bias as it loads the conv's output
         # (flax's arithmetic: the conv rounded to dtype, then + bias), unless
         # an interceptor ran the conv with its bias

@@ -106,16 +106,43 @@ def test_resnet_block_matches_flax(res_scale):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
-def test_resnet_block_refuses_autograd():
-    """Training through the block comes with the training slice; with grad
-    on, the block raises on the CPU as on the card."""
+def test_resnet_block_refuses_autograd(monkeypatch):
+    """The fused kernel has no backward (nor had the TPU kernel), so the
+    block refuses it under autograd: with grad on it never calls
+    ``fused_resblock``; without grad it calls it once."""
+    import sr_torch.nn.blocks as blocks
+
+    calls, fused = [], blocks.fused_resblock
+
+    def counted(*args, **kwargs):
+        calls.append(torch.is_grad_enabled())
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(blocks, "fused_resblock", counted)
     blk = ResnetBlock(16, generator=torch.Generator().manual_seed(0))
     x = _nchw(np.random.default_rng(4).uniform(0, 1, (1, 6, 6, 16))
               .astype(np.float32))
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        blk(x)
+    blk(x)
+    assert calls == []
     with torch.no_grad():
         assert blk(x).shape == x.shape
+    assert calls == [False]
+
+
+def test_resnet_block_trains_unfused_under_autograd():
+    """With grad on, the block runs its two convs one by one and the result
+    carries a gradient; without grad it takes the fused path. Both compute
+    the same block (≤ 1e-5, f32)."""
+    blk = ResnetBlock(16, generator=torch.Generator().manual_seed(0))
+    x = _nchw(np.random.default_rng(4).uniform(0, 1, (1, 6, 6, 16))
+              .astype(np.float32))
+    trained = blk(x)
+    assert trained.grad_fn is not None
+    with torch.no_grad():
+        fused = blk(x)
+    assert fused.shape == x.shape and fused.grad_fn is None
+    np.testing.assert_allclose(_nhwc(trained.detach()), _nhwc(fused),
+                               atol=1e-5)
 
 
 def test_resnet_block_repacks_after_weight_change():
