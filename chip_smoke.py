@@ -50,6 +50,20 @@ Phases; any failure raises and exits non-zero without the final line:
    follow;
    the trained weights must serve through ``upscale``, and the folded tail
    must equal the exact graph.
+7. Evaluate phase 6's trained model through ``sr_torch.eval.runner.evaluate``
+   and ``Trainer.make_predict_fn`` (the shuffle and resblock kernels), with
+   the counts zeroed just before and read just after: the synthetic test
+   set, 8 procedural test images at 384² by the direct route and a folder
+   of mixed-size PNGs by the static (shape-bucketed) route, each with host
+   and device metrics. (a)/(b) device PSNR and SSIM within 1e-4 dB and
+   1e-5 of the host's, no SSIM above 1; (c) in f32 the static route's SR
+   image equals the direct route's on the metric region within 1e-4 and
+   its PSNR within 1e-3 dB; (d) f32 ``evaluate`` on the card against the
+   CPU, 1e-3 dB and 1e-5 SSIM; (e) 2 shuffles and 16 resblocks per predict
+   call; (f) the native data-prep library must run and equal numpy bit for
+   bit; (g) images/s and ms per image by route and metric path (CUDA
+   events); (h) both kernels against their plain versions at the eval
+   shapes, with their times.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card line, then as
 its last line ``{"ok": true, "device": {...}}``.
@@ -57,6 +71,7 @@ its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import http.client
 import importlib.metadata
 import io
@@ -1264,8 +1279,7 @@ def _train_predict(state, x, sr_out, card: str, launches: int) -> dict:
         dtype="bfloat16", path="train predict")
 
 
-def phase_train(card: str, d2s_entry: dict, resblock_entry: dict
-                ) -> list[dict]:
+def phase_train(card: str, d2s_entry: dict, resblock_entry: dict):
     """Train full-width EDSR ×4 (bf16 compute, f32 weights) on the card
     through the port's entry points: SyntheticDataset(32, 160², seed 100),
     PatchPipeline 'matrix' on the card, crop 64, b32 (bench.py's train
@@ -1273,7 +1287,7 @@ def phase_train(card: str, d2s_entry: dict, resblock_entry: dict
     a checkpointer, predict, then serve the trained weights. Launch counts
     are zeroed just before that run and read just after. Returns the
     shuffle's training-shape entries and the resblock's entry at the shape
-    of the trainer's predict."""
+    of the trainer's predict, the trainer and the trained state."""
     import tempfile
 
     from sr_torch.data.datasets import SyntheticDataset
@@ -1425,7 +1439,357 @@ def phase_train(card: str, d2s_entry: dict, resblock_entry: dict
           f"max abs err {err:.2e} (tol 1e-4), {d_folded} shuffle launches")
     check(err <= 1e-4 and d_folded == 2, "the folded tail differs")
     shutil.rmtree(ckpt_dir)
+    return rows, tr, state
+
+
+#: the eval harness's route shapes for EDSR ×4 (halo 40, tile 96, window
+#: 176): the procedural set's 384² HR runs direct at 96² LR; the static
+#: route runs its tiled images 8 windows a call
+EVAL_TILE, EVAL_HALO = 96, 40
+EVAL_WIN = EVAL_TILE + 2 * EVAL_HALO
+EVAL_SHAPES = (("procedural direct", 1, 96), ("static route", 8, EVAL_WIN))
+#: the static route's folder (H, W): two BSD-like images and one smaller,
+#: all padded up to the window; one too small to pad (a native-size
+#: forward); one that tiles in 6 windows (one call of 8)
+EVAL_FOLDER = (("bsd_landscape", 321, 481), ("bsd_portrait", 481, 321),
+               ("padded", 232, 200), ("tiny", 44, 40), ("tiled", 720, 960))
+
+
+class _Counted:
+    """``predict`` that counts its calls, records their input shapes and a
+    CUDA event pair around each, so a run's predict time can be read
+    after it."""
+
+    def __init__(self, predict):
+        self.predict, self.calls, self.events = predict, 0, []
+        self.shapes: set = set()
+
+    def __call__(self, x):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.predict(x)
+        end.record()
+        self.calls += 1
+        self.events.append((start, end))
+        self.shapes.add(tuple(x.shape))
+        return out
+
+    def predict_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def _timed_eval(predict, ds, **kw):
+    """``evaluate`` between two CUDA events: (result, ms on the card's
+    clock from the first queued op to the last, which includes the card
+    waiting on the host's degradation and metrics; predict ms inside it;
+    the counted predict)."""
+    from sr_torch.eval.runner import evaluate
+
+    counted = _Counted(predict)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    res = evaluate(counted, ds, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end), counted.predict_ms(), counted
+
+
+def _check_eval(res, what: str) -> None:
+    ssims = [v for r in res.images for v in (r.ssim_sr, r.ssim_bicubic)
+             if v is not None]
+    vals = [v for r in res.images for v in (r.psnr_sr, r.psnr_bicubic)]
+    check(bool(np.isfinite(vals).all()) and all(
+        np.isfinite(s) and s <= 1.0 for s in ssims),
+        f"{what}: PSNR or SSIM not finite, or SSIM above 1: {res.summary()}")
+
+
+def _metric_region(hr_shape) -> tuple:
+    """The static route's metric region of an HR image at ×4: (vh, vw),
+    None where the input was not padded."""
+    from sr_torch.eval.runner import _pad_plan
+
+    ih, iw = hr_shape[0] // 4, hr_shape[1] // 4
+    pad_h, pad_w, _ = _pad_plan(ih, iw, EVAL_WIN, EVAL_HALO)
+    return ((ih - EVAL_HALO) * 4 if pad_h else None,
+            (iw - EVAL_HALO) * 4 if pad_w else None)
+
+
+def _eval_native(datasets) -> None:
+    """(f) The native library runs, and its resize and PSNR equal numpy's
+    bit for bit on every test image: the degradation, the bicubic
+    baseline, and the Y-plane PSNR at borders 0 and 4."""
+    from sr_torch.data import native
+    from sr_torch.eval.metrics import modulo_crop, psnr
+    from sr_torch.kernels.bicubic import pil_resize_exact_u8
+
+    check(native.available(), "the native data-prep library did not build "
+          "(a C++ compiler is required here; no numpy fallback)")
+    n = 0
+    for ds in datasets:
+        for i in range(len(ds)):
+            hr = modulo_crop(ds[i], 4)
+            h, w = hr.shape[:2]
+            lr = native.resize_bicubic_u8(hr, (h // 4, w // 4))
+            bc = native.resize_bicubic_u8(lr, (h, w))
+            check(np.array_equal(lr, pil_resize_exact_u8(hr, (h // 4, w // 4)))
+                  and np.array_equal(bc, pil_resize_exact_u8(lr, (h, w))),
+                  f"native resize differs from numpy on {ds.names[i]}")
+            a, b = hr[..., 0], bc[..., 0]
+            for border in (0, 4):
+                check(native.psnr_y_u8(a, b, border) == psnr(
+                    a.astype(np.float64), b.astype(np.float64),
+                    border=border),
+                    f"native PSNR differs from numpy on {ds.names[i]}")
+            n += 1
+    print(f"[7] native library ({native.BUILD_DIR.name}): resize and Y-PSNR "
+          f"== numpy bit for bit on {n} test images")
+
+
+def _eval_static_vs_direct(predict, folder) -> None:
+    """(c) The static route against the direct route: the SR image on the
+    metric region within 1e-4, per-image Y-PSNR within 1e-3 dB (the direct
+    route's PSNR taken on the same region). ``predict`` is f32 and runs
+    with TF32 off."""
+    from sr_torch.eval.metrics import psnr
+    from sr_torch.eval.runner import (
+        _prep_eval_image, _rgb_to_y, _static_predict, evaluate)
+
+    kw = dict(scale_factor=4, channels=3, color_space="rgb")
+    static_fn = _static_predict(predict, EVAL_TILE, EVAL_HALO, 4, set())
+    worst_img = 0.0
+    for i in range(len(folder)):
+        hr, _, _, x = _prep_eval_image(folder[i], 4, 3, False)
+        vh, vw = _metric_region(hr.shape)
+        x = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            d = predict(x)[0, :vh, :vw].float()
+            s = static_fn(x)[0, :vh, :vw].float()
+        check(d.shape == s.shape, f"static route shape {tuple(s.shape)}")
+        worst_img = max(worst_img, float((d - s).abs().max()))
+    static = evaluate(predict, folder, static_shapes=True, tile=EVAL_TILE,
+                      model_name="EDSR", **kw)
+    direct = evaluate(predict, folder, keep_images=True, **kw)
+    worst_psnr = 0.0
+    for a, b in zip(static.images, direct.images):
+        vh, vw = _metric_region(b.hr.shape)
+        p = psnr(_rgb_to_y(b.sr[:vh, :vw]), _rgb_to_y(b.hr[:vh, :vw]),
+                 border=4)
+        worst_psnr = max(worst_psnr, abs(a.psnr_sr - p))
+    print(f"[7] static vs direct route, f32 (TF32 off), {len(folder)} "
+          f"images: SR max abs err on the metric region {worst_img:.3g} (tol "
+          f"1e-4), Y-PSNR max diff {worst_psnr:.3g} dB (tol 1e-3)")
+    check(worst_img <= 1e-4 and worst_psnr <= 1e-3,
+          "the static route differs from the direct route")
+
+
+def _eval_card_vs_cpu(tr, model32, ds) -> None:
+    """(d) The same f32 model through ``evaluate`` on the CPU (the kernels'
+    plain versions) and on the card (TF32 off): per-image PSNR within 1e-3
+    dB, SSIM within 1e-5."""
+    from sr_torch.eval.runner import evaluate
+    from sr_torch.utils.precision import no_tf32
+
+    kw = dict(scale_factor=4, channels=3, color_space="rgb")
+    fn = tr.make_predict_fn()
+    cpu_model = model32.clone(torch.float32).to("cpu")
+    cpu = evaluate(functools.partial(fn, cpu_model), ds, device="cpu", **kw)
+    with no_tf32():
+        card = evaluate(functools.partial(fn, model32), ds, **kw)
+    pairs = list(zip(card.images, cpu.images))
+    dp = max(abs(a.psnr_sr - b.psnr_sr) for a, b in pairs)
+    dss = max(abs(a.ssim_sr - b.ssim_sr) for a, b in pairs)
+    print(f"[7] evaluate f32 card vs CPU, {len(ds)} images: PSNR max diff "
+          f"{dp:.3g} dB (tol 1e-3), SSIM max diff {dss:.3g} (tol 1e-5)")
+    check(dp <= 1e-3 and dss <= 1e-5,
+          "evaluate on the card differs from the CPU")
+
+
+def _eval_kernel_rows(card: str, launches: dict) -> list[dict]:
+    """(h) The shuffle (both ×2 stages) and the resblock at the eval
+    routes' shapes, bf16: against their plain versions, and timed as phase
+    3 times them."""
+    from sr_torch.kernels.depth_to_space import (
+        depth_to_space, depth_to_space_plain)
+    from sr_torch.kernels.fused_resblock import (
+        fused_resblock, fused_resblock_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for route, b, h in EVAL_SHAPES:
+        for hh in (h, 2 * h):
+            x, bias = _d2s_operands((b, hh, hh, 256), torch.bfloat16, gen,
+                                    True)
+            check(torch.equal(depth_to_space(x, 2, None, bias),
+                              depth_to_space_plain(x, 2, None, bias)),
+                  f"depth_to_space differs at {tuple(x.shape)}")
+            xc = x.permute(0, 3, 1, 2)
+            t_k = kernel_ms(lambda: depth_to_space(x, 2))
+            t_p = kernel_ms(lambda: depth_to_space_plain(x, 2).contiguous())
+            t_l = kernel_ms(lambda: F.pixel_shuffle(xc, 2))
+            t_kb = kernel_ms(lambda: depth_to_space(x, 2, None, bias))
+            t_pb = kernel_ms(lambda: depth_to_space_plain(
+                x, 2, None, bias).contiguous())
+            bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            print(f"[7] depth_to_space {tuple(x.shape)} r=2 bf16 ({route}): "
+                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, F.pixel_shuffle "
+                  f"{t_l:.4f} ms, bound {bound:.4f} ms (bytes); with bias: "
+                  f"kernel {t_kb:.4f} ms, plain {t_pb:.4f} ms | {card}")
+            rows.append(dict(
+                name="depth_to_space", route="cuda",
+                source="sr_torch/kernels/csrc/depth_to_space.cu",
+                replaces="sr/kernels/depth_to_space.py:73",
+                launches=launches["depth_to_space"], max_abs_err=0.0,
+                ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by="bytes",
+                library_ms=t_l, shape=list(x.shape), dtype="bfloat16",
+                path=f"eval, {route}", ms_with_bias=t_kb,
+                plain_ms_with_bias=t_pb))
+            del x, xc, bias
+        ops = _resblock_operands((b, h, h, 64), torch.bfloat16, gen)
+        kops = _kernel_operands(ops)
+        err = float((fused_resblock(*kops, res_scale=0.1).float()
+                     - fused_resblock_plain(*ops, res_scale=0.1).float())
+                    .abs().max())
+        check(err <= TOL[torch.bfloat16],
+              f"fused_resblock disagrees at {(b, h, h, 64)}: {err}")
+        t_k = kernel_ms(lambda: fused_resblock(*kops, res_scale=0.1))
+        t_p = kernel_ms(lambda: fused_resblock_plain(*ops, res_scale=0.1))
+        t_l = kernel_ms(_resblock_library(*ops, res_scale=0.1))
+        bound, bound_by = _resblock_bound(ops[0])
+        print(f"[7] fused_resblock {(b, h, h, 64)} bf16 ({route}): kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, conv-relu-conv-add "
+              f"{t_l:.4f} ms, bound {bound:.4f} ms ({bound_by}); max err "
+              f"{err:.3g} (tol {TOL[torch.bfloat16]}) | {card}")
+        rows.append(dict(
+            name="fused_resblock", route="cuda",
+            source="sr_torch/kernels/csrc/fused_resblock.cu",
+            replaces="sr/kernels/fused_resblock.py:119",
+            launches=launches["fused_resblock"], max_abs_err=err, ms=t_k,
+            plain_ms=t_p, bound_ms=bound, bound_by=bound_by, library_ms=t_l,
+            shape=[b, h, h, 64], dtype="bfloat16", path=f"eval, {route}"))
+        del ops, kops
     return rows
+
+
+def phase_eval(card: str, tr, state) -> list[dict]:
+    """Evaluate phase 6's trained full-width EDSR ×4 (bf16) on the card
+    through ``sr_torch.eval.runner.evaluate`` and
+    ``Trainer.make_predict_fn``, the kernel counts zeroed just before and
+    read just after: the synthetic test set, 8 procedural test images by
+    the direct route and a folder of mixed-size PNGs by the static route,
+    each with host and device metrics. Then the checks (a)-(h) of the
+    module docstring. Returns the kernel rows at the eval shapes."""
+    import tempfile
+
+    from PIL import Image
+
+    from sr_torch.data.datasets import FolderDataset, get_test_set
+    from sr_torch.data.decode import list_images
+    from sr_torch.data.procedural import (
+        ProceduralDataset, generate_procedural_image)
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+    from sr_torch.utils.precision import no_tf32
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    synthetic = get_test_set(str(out_dir), "synthetic")
+    # 8 of get_test_set('procedural')'s 128 images, unmaterialized
+    proc = ProceduralDataset(num_images=8, size=(384, 384), split="test",
+                             color_space="rgb")
+    folder_dir = Path(tempfile.mkdtemp(prefix="eval_folder_", dir=out_dir))
+    rng = np.random.default_rng(7)
+    for name, h, w in EVAL_FOLDER:
+        Image.fromarray(generate_procedural_image(rng, h, w)).save(
+            folder_dir / f"{name}.png")
+    folder = FolderDataset(list_images(str(folder_dir)), "rgb")
+    sets = (synthetic, proc, folder)
+    for ds in sets:  # generate and decode before any timing
+        for i in range(len(ds)):
+            ds[i]
+    print(f"[7] test sets: synthetic {len(synthetic)} x 128x128, procedural "
+          f"{len(proc)} x 384x384 (test split), folder of {len(folder)} PNGs "
+          f"{[(h, w) for _, h, w in EVAL_FOLDER]}; made in "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
+    _eval_native(sets)
+
+    predict = functools.partial(tr.make_predict_fn(), state.model)
+    rgb = dict(scale_factor=4, channels=3, color_space="rgb")
+    static = dict(static_shapes=True, tile=EVAL_TILE, model_name="EDSR")
+    routes = (("synthetic", synthetic, {}), ("procedural direct", proc, {}),
+              ("folder static", folder, static))
+    for _, ds, extra in routes:  # warm-up: cuDNN's plans at each shape
+        for on_dev in (False, True):
+            _timed_eval(predict, ds, on_device_metrics=on_dev, **rgb, **extra)
+
+    # ---- the eval path: counts zeroed just before, read just after ----
+    depth_to_space.launches = 0
+    fused_resblock.launches = 0
+    runs = {}
+    for name, ds, extra in routes:
+        for on_dev in (False, True):
+            runs[name, on_dev] = _timed_eval(
+                predict, ds, on_device_metrics=on_dev, **rgb, **extra)
+    launches = {"depth_to_space": depth_to_space.launches,
+                "fused_resblock": fused_resblock.launches}
+    calls = sum(r[3].calls for r in runs.values())
+    print(f"[7] eval-path launches over {calls} predict calls: {launches} "
+          f"(want {2 * calls} and {16 * calls})")
+    check(launches == {"depth_to_space": 2 * calls,
+                       "fused_resblock": 16 * calls},
+          "(e) the eval path did not run 2 shuffles and 16 resblocks a "
+          "predict")
+    shapes = runs["folder static", False][3].shapes
+    print(f"[7] static route predict input shapes: {sorted(shapes)} (the "
+          f"tiny image runs native-size)")
+    check(shapes == {(8, EVAL_WIN, EVAL_WIN, 3), (1, EVAL_WIN, EVAL_WIN, 3),
+                     (1, 11, 10, 3)}, "the static route ran other shapes")
+
+    # ---- (a), (b) host against device metrics; no SSIM above 1
+    for name, ds, _ in routes:
+        host, dev = runs[name, False][0], runs[name, True][0]
+        _check_eval(host, name)
+        _check_eval(dev, name)
+        pairs = list(zip(host.images, dev.images))
+        dp = max(abs(a.psnr_sr - b.psnr_sr) for a, b in pairs)
+        dss = max(abs(a.ssim_sr - b.ssim_sr) for a, b in pairs
+                  if a.ssim_sr is not None)
+        print(f"[7] {name}: host vs device metrics, per image PSNR max diff "
+              f"{dp:.3g} dB (tol 1e-4), SSIM {dss:.3g} (tol 1e-5); model "
+              f"{host.avg_psnr_sr:.4f} dB / SSIM "
+              f"{host.summary().get('ssim_sr')}, bicubic "
+              f"{host.avg_psnr_bicubic:.4f} dB / SSIM "
+              f"{host.summary().get('ssim_bicubic')}")
+        check(dp <= 1e-4 and dss <= 1e-5,
+              f"{name}: device metrics differ from the host's")
+
+    # ---- (g) images/s and ms per image; host against device metrics
+    for name, _, _ in routes:
+        for on_dev in (False, True):
+            res, ms, pred_ms, counted = runs[name, on_dev]
+            n = len(res.images)
+            print(f"[7] eval {name}, {'device' if on_dev else 'host'} "
+                  f"metrics: {n / ms * 1e3:.2f} images/s, {ms / n:.3f} "
+                  f"ms/image (CUDA events), predict {pred_ms / n:.3f} "
+                  f"ms/image over {counted.calls} calls "
+                  f"({100 * pred_ms / ms:.1f}% of the span) | {card}")
+        host_ms, dev_ms = runs[name, False][1], runs[name, True][1]
+        print(f"[7] eval {name}: host metrics {host_ms:.1f} ms against "
+              f"device metrics {dev_ms:.1f} ms for the set "
+              f"({host_ms / dev_ms:.2f}x) | {card}")
+
+    # ---- (c) static against direct, (d) card against CPU; f32, TF32 off
+    model32 = state.model.clone(torch.float32)
+    with no_tf32():
+        _eval_static_vs_direct(
+            functools.partial(tr.make_predict_fn(), model32), folder)
+    _eval_card_vs_cpu(tr, model32, synthetic)
+    shutil.rmtree(folder_dir)
+
+    # ---- (h) the kernels at the eval shapes
+    return _eval_kernel_rows(card, launches)
 
 
 def main() -> int:
@@ -1442,7 +1806,9 @@ def main() -> int:
     phase_int8_serve(path, int8_entry, outs)
     entries.append(int8_entry)
     phase_throughput(path, card)
-    entries += phase_train(card, entries[0], entries[1])
+    rows, tr, state = phase_train(card, entries[0], entries[1])
+    entries += rows
+    entries += phase_eval(card, tr, state)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

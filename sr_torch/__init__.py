@@ -11,5 +11,7 @@ Slices 1 and 2 serve EDSR ×4 in float and int8: ``sr_torch.infer.upscale``
 (``quantize=...``) and ``python -m sr_torch.serve`` (``--quantize``).
 Slice 5 trains it: ``sr_torch.data.pipeline.PatchPipeline`` on the card and
 ``sr_torch.train.trainer.Trainer`` (K steps per dispatch, full-state
-checkpoints with exact resume).
+checkpoints with exact resume). Slice 7 evaluates it:
+``sr_torch.eval.runner.evaluate`` on ``sr_torch.data.datasets.get_test_set``
+(Pillow-exact degradation, Y-channel PSNR/SSIM on the host or the card).
 """

@@ -1,19 +1,53 @@
-"""Training corpora: the procedural ``synthetic`` set.
+"""Datasets: the procedural ``synthetic`` set, folders of images, and the
+training and test sets by name.
 
-Port of the part of ``sr/data/datasets.py`` that the training slice needs.
+Port of ``sr/data/datasets.py`` with the reference's directory conventions
+(reference: data.py:get_training_set, data.py:get_test_set):
+
+  * BSDS300 lives at ``<root>/BSDS300/images/{train,test}``;
+  * named test sets (Set5, Set14, BSD100, Urban100) live at
+    ``<root>/test/<name>``.
+
 :class:`SyntheticDataset` is a numpy copy that makes the same uint8 images,
-bit for bit, from the same seed, so tests and the smoke run train on data
-without a download. The folder datasets (BSDS300, named test sets) and the
-``procedural`` corpus come with the eval slice and raise here.
+bit for bit, from the same seed, so tests and the smoke run need no
+download. The port never downloads: BSDS300 must be extracted beforehand.
+Training takes ``'synthetic'`` only; training on the folder and
+``procedural`` corpora comes with the models that need it.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
-_LATER = "lands in a later port slice (eval)"
+from sr_torch.data.decode import list_images, load_img
+
+_LATER = "lands in a later port slice"
+
+
+@dataclass
+class FolderDataset:
+    """All images of a folder, decoded once to uint8 host arrays."""
+
+    paths: list[str]
+    color_space: str = "ycbcr"
+
+    def __post_init__(self):
+        self._cache: dict[int, np.ndarray] = {}
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        if i not in self._cache:
+            self._cache[i] = load_img(self.paths[i], self.color_space)
+        return self._cache[i]
+
+    @property
+    def names(self) -> list[str]:
+        return [os.path.splitext(os.path.basename(p))[0] for p in self.paths]
 
 
 @dataclass
@@ -59,7 +93,7 @@ def get_training_set(data_dir: str, datasets: list[str] | str,
                      color_space: str = "ycbcr") -> SyntheticDataset:
     """Training dataset by name: ``'synthetic'`` (32 images at 160², seed
     0, as in the JAX package). ``data_dir`` and ``color_space`` serve the
-    folder datasets, which raise until their slice lands."""
+    folder and procedural corpora, which raise until their slice lands."""
     del data_dir, color_space
     if isinstance(datasets, str):
         datasets = [datasets]
@@ -68,3 +102,35 @@ def get_training_set(data_dir: str, datasets: list[str] | str,
     raise NotImplementedError(
         f"training set {datasets!r} {_LATER} (the port trains on "
         "'synthetic' for now; nothing is downloaded)")
+
+
+def get_test_set(data_dir: str, dataset: str, color_space: str = "ycbcr"):
+    """Test dataset by name. (reference: data.py:get_test_set)
+
+    'synthetic' → 5 synthetic images at 128² (seed 7); 'procedural' → 128
+    held-out images at 384², generated once and cached under
+    ``data_dir/procedural_cache``; 'bsds300' → the extracted
+    ``BSDS300/images/test``; otherwise ``data_dir/test/<name>``.
+    """
+    lname = dataset.lower()
+    if lname == "synthetic":
+        return SyntheticDataset(num_images=5, size=(128, 128), seed=7)
+    if lname == "procedural":
+        from sr_torch.data.procedural import ProceduralDataset
+
+        # disjoint PRNG stream from the train split
+        return ProceduralDataset(
+            num_images=128, size=(384, 384), seed=0, split="test",
+            color_space=color_space,
+        ).materialize(os.path.join(data_dir, "procedural_cache"))
+    if lname == "bsds300":
+        root = os.path.join(data_dir, "BSDS300", "images")
+        if not os.path.isdir(root):
+            raise RuntimeError(
+                f"BSDS300 not found at {root}: download and extract "
+                f"BSDS300-images.tgz into {data_dir} beforehand (sr_torch "
+                "never downloads), or use 'synthetic' / 'procedural'")
+        return FolderDataset(list_images(os.path.join(root, "test")),
+                             color_space)
+    return FolderDataset(list_images(os.path.join(data_dir, "test", dataset)),
+                         color_space)

@@ -4,9 +4,10 @@ Split the LR image into overlapping tiles (halo = the network's receptive
 field), run the tiles in batches of at most ``max_tiles_per_call``, crop the
 halos from the outputs and stitch. Activation memory is bounded by the
 batch, whatever the image's area, and the result equals the full-image
-forward when ``halo ≥`` the receptive field. ``fixed_chunk`` (one batch
-shape for a whole eval set) lands with the eval slice, ``sharded_predict``
-(rows across devices) with the multi-GPU slice.
+forward when ``halo ≥`` the receptive field. ``fixed_chunk`` pads every
+call to exactly ``max_tiles_per_call`` tiles, so the eval harness's
+shape-bucketed route runs a mixed-size set at one batch shape.
+``sharded_predict`` (rows across devices) lands with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ RECEPTIVE_FIELD = {
 
 def tiled_predict(predict_fn, x: torch.Tensor, scale_factor: int,
                   tile: int = 128, halo: int = 32,
-                  max_tiles_per_call: int = 16) -> torch.Tensor:
+                  max_tiles_per_call: int = 16,
+                  fixed_chunk: bool = False) -> torch.Tensor:
     """Run ``predict_fn`` over overlapping tiles of NHWC ``x`` and stitch.
 
     ``x``: (1, H, W, C) LR input. All tiles share one window shape; every
@@ -40,6 +42,11 @@ def tiled_predict(predict_fn, x: torch.Tensor, scale_factor: int,
     never padded, so an output pixel's receptive field either lies inside
     the window or meets the true image edge where the window does — the
     network's own SAME padding then applies as in the full forward.
+
+    ``fixed_chunk``: pad EVERY call to exactly ``max_tiles_per_call``
+    tiles, so images with different tile counts share one batch shape. An
+    image that fits one window still runs whole, at batch 1, as in the JAX
+    package.
     """
     if x.dim() != 4 or x.shape[0] != 1:
         raise ValueError(f"tiled_predict takes batch 1 NHWC, got {tuple(x.shape)}")
@@ -64,7 +71,8 @@ def tiled_predict(predict_fn, x: torch.Tensor, scale_factor: int,
             crops.append((y0 - sy, x0 - sx, y1 - y0, x1 - x0))
 
     n = len(slices)
-    chunk = max(1, min(max_tiles_per_call, n))
+    chunk = (max_tiles_per_call if fixed_chunk
+             else max(1, min(max_tiles_per_call, n)))
     outs = []
     for start in range(0, n, chunk):
         group = slices[start:start + chunk]

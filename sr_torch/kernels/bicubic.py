@@ -1,6 +1,6 @@
-"""Pillow-parity resampling as two float32 matrix products.
+"""Pillow-parity resampling: float32 matrix products and the exact u8 path.
 
-Port of the training half of ``sr/kernels/bicubic.py``. The reference
+Port of ``sr/kernels/bicubic.py``. The reference
 degrades HR images to LR with ``PIL.Image.resize(..., BICUBIC)``, whose
 resampler widens its support by the scale factor on downscale and runs two
 separable passes (horizontal first) with the intermediate image clamped to
@@ -8,10 +8,18 @@ separable passes (horizontal first) with the intermediate image clamped to
 are constant, so a resize is two dense products with precomputed matrices.
 
 The coefficient code (:func:`precompute_coeffs`, :func:`resize_matrix`) is
-the port's own numpy copy; :func:`resize2d` runs the products in float32
-with ``torch.einsum``. Pillow's bit-exact uint8 path (``pil_resize_exact_u8``,
-``img_interp``, ``resize2d_unit``) comes with the eval slice. No Pallas
-kernel lives here: the JAX package leaves these products to XLA too.
+the port's own numpy copy. Two resamplers use it:
+
+  * :func:`resize2d` runs the products in float32 with ``torch.einsum`` on
+    the tensor's device (the training degradation; within one u8 step of
+    Pillow).
+  * :func:`pil_resize_exact_u8` replicates Pillow's uint8 fixed-point
+    passes on the host in numpy, bit for bit (the eval degradation, so a
+    reported PSNR is against exactly the reference's LR).
+
+The pre-upsample helpers (``img_interp``, ``resize2d_unit``) come with the
+pre-upsample models. No Pallas kernel lives here: the JAX package leaves
+these products to XLA too.
 """
 
 from __future__ import annotations
@@ -20,6 +28,10 @@ import functools
 
 import numpy as np
 import torch
+
+# Pillow's fixed-point coefficient precision for 8-bit channels
+# (libImaging/Resample.c: #define PRECISION_BITS (32 - 8 - 2)).
+PRECISION_BITS = 32 - 8 - 2
 
 #: Pillow filter supports (libImaging/Resample.c struct filters).
 _SUPPORT = {"bicubic": 2.0, "bilinear": 1.0, "box": 0.5}
@@ -146,3 +158,57 @@ def resize2d(
     if squeeze[0]:
         out = out[..., 0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host-side bit-exact Pillow path (uint8 fixed-point, numpy)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def _int_coeff_matrix(in_size: int, out_size: int, filter: str = "bicubic") -> np.ndarray:
+    """Dense (out, in) int64 matrix of Pillow's quantized coefficients,
+    cached per (in, out, filter). Callers must not write to it."""
+    bounds, kk = precompute_coeffs(in_size, out_size, filter)
+    v = kk * (1 << PRECISION_BITS)
+    ikk = np.where(v >= 0, np.floor(v + 0.5), np.ceil(v - 0.5)).astype(np.int64)
+    m = np.zeros((out_size, in_size), dtype=np.int64)
+    for o in range(out_size):
+        lo = bounds[o]
+        n = min(ikk.shape[1], in_size - lo)
+        m[o, lo : lo + n] = ikk[o, :n]
+    return m
+
+
+def _pass_u8(img: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """One fixed-point pass contracting the LAST axis of ``img`` with m.T."""
+    acc = img.astype(np.int64) @ m.T
+    acc += 1 << (PRECISION_BITS - 1)
+    acc >>= PRECISION_BITS
+    return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def pil_resize_exact_u8(
+    img: np.ndarray, out_hw: tuple[int, int], filter: str = "bicubic"
+) -> np.ndarray:
+    """Bit-exact replica of ``PIL.Image.resize`` for uint8 (H,W[,C]) arrays.
+
+    Matches Pillow's pass order (horizontal, then vertical) including the
+    intermediate uint8 rounding between passes.
+    """
+    if img.dtype != np.uint8:
+        raise TypeError(f"the exact path takes uint8, got {img.dtype}")
+    out_h, out_w = out_hw
+    chan_last = img.ndim == 3
+    x = img
+    h_in, w_in = x.shape[:2]
+    if w_in != out_w:  # horizontal pass: contract W
+        m = _int_coeff_matrix(w_in, out_w, filter)
+        if chan_last:
+            x = np.moveaxis(_pass_u8(np.moveaxis(x, 1, -1), m), -1, 1)
+        else:
+            x = _pass_u8(x, m)
+    if h_in != out_h:  # vertical pass: contract H
+        m = _int_coeff_matrix(h_in, out_h, filter)
+        x = np.moveaxis(_pass_u8(np.moveaxis(x, 0, -1), m), -1, 0)
+    return x
