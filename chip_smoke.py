@@ -65,8 +65,35 @@ Phases; any failure raises and exits non-zero without the final line:
    events); (h) both kernels against their plain versions at the eval
    shapes, with their times.
 
-It prints a ``{"kernels": [...]}`` JSON line, then the card line, then as
-its last line ``{"ok": true, "device": {...}}``.
+8. ESPCN ×4 on Y at full width (64/32 filters, r=4, one channel): (a) the
+   shuffle at r=4, 16→1 and the fused int8 entry at ESPCN's three sites
+   (5×5 over one channel, 64→32, 32→16) at the forward shapes ``upscale``
+   gives the net for the two images of (c) (one whole, one as a batch of 4
+   halo tiles), the shuffle also at the eval shape, under autograd at the
+   training shape and on an odd 37×53 input (and, rowless, at b16 128²,
+   which no path serves); each exact against its plain version and timed
+   as in phase 3, each row with the launches of its own shape on its
+   path; (b) training with the bench's ESPCN
+   configuration: f32 step card vs CPU, 'last' against off, 1/0 shuffles a
+   step, two K=300 dispatches whose loss falls, a checkpoint that restores
+   exactly; (c) the trained params served through ``upscale`` on RGB
+   images (Y through the net, bicubic chroma; one tiled) in bf16, f32 and
+   int8 static and dynamic, and one HTTP POST: f32 card vs CPU within one
+   u8 level, a YCbCr image's chroma == ``resize_bicubic_u8``, int8 vs f32
+   interior mean ≤ 4 levels, 1 shuffle and 3 int8 convs a forward, no
+   resblock; (d) ``evaluate(channels=1)`` on the synthetic set and 8
+   procedural 384² images, device metrics within 1e-4 dB / 1e-5 SSIM of
+   the host's, images/s. Each path's counts are zeroed just before it and
+   read just after.
+9. Each kernel against its plain version at the bench's b192 shapes; then
+   ``sr_torch.bench``'s whole measurement in process (serving marginals at
+   b64→b192, the EDSR and ESPCN train axes), its counts zeroed just before
+   and read just after (all three kernels must run); its JSON line is
+   printed on a line of its own and checked: every key present and
+   positive, ``train`` holding EDSR and ESPCN.
+
+It prints the bench's JSON line, a ``{"kernels": [...]}`` JSON line, then
+the card line, then as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -266,56 +293,77 @@ def _d2s_operands(shape, dtype, gen, with_bias):
 D2S_SHAPES = ((128, 256, 2), (256, 256, 2), (128, 48, 4))
 
 
-def _d2s_serving(card: str, gen, d2s_err: float) -> dict:
-    """The shuffle at the serving shapes: exact against its plain version
-    with and without bias; times of the kernel (with the bias too), the
-    plain version, F.pixel_shuffle and the bytes bound. Returns the JSON
-    entry, at the largest bf16 shuffle of the exact path."""
+def _d2s_exact(x, r: int, bias) -> None:
+    """The shuffle kernel on ``x`` equal to its plain version, without and
+    with ``bias`` (None for u8)."""
     from sr_torch.kernels.depth_to_space import (
         depth_to_space, depth_to_space_plain)
 
+    for b_ in (None, bias) if bias is not None else (None,):
+        check(torch.equal(depth_to_space(x, r, None, b_),
+                          depth_to_space_plain(x, r, None, b_)),
+              f"depth_to_space differs at {tuple(x.shape)} r={r} {x.dtype} "
+              f"bias={b_ is not None}")
+
+
+def _d2s_row(card: str, gen, shape, r: int, dtype, tag: str = "[3]",
+             path: str | None = None, odd=None) -> dict:
+    """The shuffle at one shape: exact against its plain version without
+    and with bias (and at ``odd`` (B, H, W): ragged heads and tails of the
+    output runs); times of the kernel (with the bias too), the plain
+    version, F.pixel_shuffle and the bytes bound. Returns the kernels-line
+    row."""
+    from sr_torch.kernels.depth_to_space import (
+        depth_to_space, depth_to_space_plain)
+
+    x, bias = _d2s_operands(shape, dtype, gen, True)
+    _d2s_exact(x, r, bias)
+    if odd is not None:
+        xo, bo = _d2s_operands((*odd, shape[-1]), dtype, gen, True)
+        _d2s_exact(xo, r, bo)
+        del xo, bo
+    xc = x.permute(0, 3, 1, 2)  # the same memory as NCHW channels_last
+    t_k = kernel_ms(lambda: depth_to_space(x, r))
+    t_h = host_us(lambda: depth_to_space(x, r))
+    t_p = kernel_ms(lambda: depth_to_space_plain(x, r).contiguous())
+    t_l = kernel_ms(lambda: F.pixel_shuffle(xc, r))
+    bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+    row = dict(
+        name="depth_to_space", route="cuda",
+        source="sr_torch/kernels/csrc/depth_to_space.cu",
+        replaces="sr/kernels/depth_to_space.py:73", launches=None,
+        max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound,
+        bound_by="bytes", library_ms=t_l, shape=list(x.shape),
+        dtype=str(dtype)[6:])
+    with_bias = ""
+    if bias is not None:
+        row["ms_with_bias"] = kernel_ms(
+            lambda: depth_to_space(x, r, None, bias))
+        row["plain_ms_with_bias"] = kernel_ms(lambda: depth_to_space_plain(
+            x, r, None, bias).contiguous())
+        with_bias = (f"; with bias: kernel {row['ms_with_bias']:.4f} ms, "
+                     f"plain {row['plain_ms_with_bias']:.4f} ms")
+    if path is not None:
+        row["path"] = path
+    print(f"{tag} depth_to_space {tuple(x.shape)} r={r} {str(dtype)[6:]}"
+          f"{f' ({path})' if path else ''}: kernel {t_k:.4f} ms, plain "
+          f"{t_p:.4f} ms, F.pixel_shuffle {t_l:.4f} ms, bound {bound:.4f} "
+          f"ms (bytes){with_bias}; host {t_h:.1f} us a call; == plain"
+          f"{f', and at {odd}' if odd else ''} | {card}")
+    return row
+
+
+def _d2s_serving(card: str, gen, d2s_err: float) -> dict:
+    """The shuffle at the serving shapes, each a :func:`_d2s_row`. Returns
+    the JSON entry, at the largest bf16 shuffle of the exact path."""
     entry = None
     for dtype in (torch.bfloat16, torch.float32, torch.uint8):
         for h, cin, r in D2S_SHAPES:
             if dtype == torch.uint8 and r != 4:
                 continue  # u8 is the fused-quant tail's output only
-            x, bias = _d2s_operands((16, h, h, cin), dtype, gen, True)
-            xc = x.permute(0, 3, 1, 2)  # the same memory as NCHW channels_last
-            for b_ in (None, bias) if bias is not None else (None,):
-                got = depth_to_space(x, r, None, b_)
-                want = depth_to_space_plain(x, r, None, b_)
-                d2s_err = max(d2s_err, float(
-                    (got.float() - want.float()).abs().max()))
-                check(torch.equal(got, want),
-                      f"depth_to_space differs at {tuple(x.shape)} r={r} "
-                      f"{dtype} bias={b_ is not None}")
-                del got, want
-            t_k = kernel_ms(lambda: depth_to_space(x, r))
-            t_h = host_us(lambda: depth_to_space(x, r))
-            t_p = kernel_ms(lambda: depth_to_space_plain(x, r).contiguous())
-            t_l = kernel_ms(lambda: F.pixel_shuffle(xc, r))
-            bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-            with_bias = ""
-            if bias is not None:
-                t_kb = kernel_ms(lambda: depth_to_space(x, r, None, bias))
-                t_pb = kernel_ms(lambda: depth_to_space_plain(
-                    x, r, None, bias).contiguous())
-                with_bias = (f"; with bias: kernel {t_kb:.4f} ms, plain "
-                             f"{t_pb:.4f} ms")
-            print(f"[3] depth_to_space {tuple(x.shape)} r={r} "
-                  f"{str(dtype)[6:]}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-                  f"ms, F.pixel_shuffle {t_l:.4f} ms, bound {bound:.4f} ms "
-                  f"(bytes){with_bias}; host {t_h:.1f} us a call | {card}")
+            row = _d2s_row(card, gen, (16, h, h, cin), r, dtype)
             if dtype == torch.bfloat16 and h == 256:
-                entry = dict(
-                    name="depth_to_space", route="cuda",
-                    source="sr_torch/kernels/csrc/depth_to_space.cu",
-                    replaces="sr/kernels/depth_to_space.py:73", launches=None,
-                    max_abs_err=None, ms=t_k, plain_ms=t_p, bound_ms=bound,
-                    bound_by="bytes", library_ms=t_l, shape=list(x.shape),
-                    dtype="bfloat16", ms_with_bias=t_kb,
-                    plain_ms_with_bias=t_pb)
-            del x, xc, bias
+                entry = row
     entry["max_abs_err"] = d2s_err
     return entry
 
@@ -538,90 +586,121 @@ def phase_int8_conv(card: str) -> dict:
 
     entry = None
     for name, b, h, w, c, n, k in INT8_SHAPES:
-        q_w = q((k, k, c, n))
-        packed = pack_weights(q_w)  # once, as the int8 sites pack it
-        # bit for bit at the path's shapes: the per-sample (dynamic) scale
-        # with its (B, 1, 1, N) dequantize table; the per-channel scale (as
-        # timed); at the tail, the fused-quant tail's reciprocal scale
-        x, scale, dequant, bias = _fused_operands(gen, (b, h, w, c), n,
-                                                  "dynamic")
-        check(torch.equal(
-            conv_int8_fused(x, q_w, scale, dequant, bias, packed=packed),
-            conv_int8_fused_plain(x, q_w, scale, dequant, bias)),
-            f"fused int8 conv (per-sample scale) differs at the {name} shape")
-        x, scale, dequant, bias = _fused_operands(gen, (b, h, w, c), n,
-                                                  "per_channel")
-        if k == 7:  # the fused-quant tail multiplies by a per-channel 1/s
-            inv = 127.0 / x.abs().amax(dim=(0, 1, 2))
-            check(torch.equal(
-                conv_int8_fused(x, q_w, inv, dequant, bias, reciprocal=True,
-                                packed=packed),
-                conv_int8_fused_plain(x, q_w, inv, dequant, bias,
-                                      reciprocal=True)),
-                f"fused int8 conv (reciprocal scale) differs at the {name} "
-                "shape")
-        got = conv_int8_fused(x, q_w, scale, dequant, bias, packed=packed)
-        err = float((got - conv_int8_fused_plain(x, q_w, scale, dequant,
-                                                 bias)).abs().max())
-        check(err == 0.0, f"fused int8 conv differs at the {name} shape")
-        del got
-        q_x = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-        check(torch.equal(conv_int8_im2col(q_x, q_w),
-                          conv_int8_plain(q_x, q_w)),
-              f"int8_conv differs at the {name} shape")
-        t_k = kernel_ms(lambda: conv_int8_fused(x, q_w, scale, dequant,
-                                                bias, packed=packed))
-        t_p = kernel_ms(lambda: conv_int8_fused_plain(x, q_w, scale,
-                                                      dequant, bias))
-        t_raw = kernel_ms(lambda: conv_int8_im2col(q_x, q_w))
-
-        def former():  # the raw kernel inside the passes it replaced
-            qq = torch.clamp(torch.round(x / scale), -127, 127).to(
-                torch.int8)
-            return conv_int8_im2col(qq, q_w).to(torch.float32) * dequant + bias
-
-        t_f = kernel_ms(former)
-        a, wm = _int_mm_operands(q_x, q_w)
-        try:  # a yardstick only: the port never calls it
-            t_l = kernel_ms(lambda: torch._int_mm(a, wm))
-        except RuntimeError as e:
-            print(f"[3] torch._int_mm refused {tuple(a.shape)} x "
-                  f"{tuple(wm.shape)}: {e}")
-            t_l = None
-        del a, wm
-        xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last bf16
-        kb = q_w.permute(3, 2, 0, 1).bfloat16().contiguous(
-            memory_format=torch.channels_last)
-        t_c = kernel_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
-        del xb, q_x
-        ops = 2 * b * h * w * k * k * c * n
-        t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
-        # fused: f32 in, int8 weights, f32 out (the scale, dequantize and
-        # bias tables are below a KB); raw: int8 in, int32 out
-        nbytes = 4 * b * h * w * c + k * k * c * n + 4 * b * h * w * n
-        raw_bytes = b * h * w * c + k * k * c * n + 4 * b * h * w * n
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
-        raw_bound = max(t_ops, raw_bytes / HBM_BYTES_PER_S * 1e3)
-        by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[3] int8_conv {name} {(b, h, w, c)}->{n} k={k}: fused kernel "
-              f"{t_k:.4f} ms (f32 in/out, bound {bound:.4f} ms, {by}), plain "
-              f"{t_p:.4f} ms, raw kernel + its former passes {t_f:.4f} ms, "
-              f"raw kernel alone {t_raw:.4f} ms (bound {raw_bound:.4f}), "
-              f"torch._int_mm on a prebuilt im2col matrix {t_l} ms (GEMM "
-              f"alone), cuDNN bf16 conv {t_c:.4f} ms; max err {err:g} "
-              f"| {card}")
+        row = _int8_row(card, gen, name, (b, h, w, c), n, k)
         if name == "body":
-            entry = dict(
-                name="int8_conv", route="cuda",
-                source="sr_torch/kernels/csrc/int8_conv.cu",
-                replaces="sr/kernels/int8_conv.py:75", launches=None,
-                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-                bound_by=by, library_ms=t_l, shape=[b, h, w, c, n, k],
-                dtype="f32 -> int8 -> f32 (fused entry)", former_ms=t_f,
-                raw_ms=t_raw, raw_bound_ms=raw_bound)
-        del x
+            entry = row
     return entry
+
+
+def _int8_exact(gen, name: str, shape, n: int, k: int):
+    """The fused int8 entry at one conv's shape, bit for bit against its
+    plain version: the per-sample scale with its (B, 1, 1, N) dequantize
+    table, the per-channel scale of a static site (at k=7 also the
+    fused-quant tail's reciprocal scale); and the raw entry exact. Returns
+    the per-channel operands ``(x, q_w, packed, scale, dequant, bias,
+    q_x)`` and the largest error."""
+    from sr_torch.kernels.int8_conv import (
+        conv_int8_fused, conv_int8_fused_plain, conv_int8_im2col,
+        conv_int8_plain, pack_weights)
+
+    b, h, w, c = shape
+    q_w = torch.randint(-127, 128, (k, k, c, n), device="cuda",
+                        generator=gen).to(torch.int8)
+    packed = pack_weights(q_w)  # once, as the int8 sites pack it
+    x, scale, dequant, bias = _fused_operands(gen, (b, h, w, c), n,
+                                              "dynamic")
+    check(torch.equal(
+        conv_int8_fused(x, q_w, scale, dequant, bias, packed=packed),
+        conv_int8_fused_plain(x, q_w, scale, dequant, bias)),
+        f"fused int8 conv (per-sample scale) differs at the {name} shape "
+        f"{shape}")
+    x, scale, dequant, bias = _fused_operands(gen, (b, h, w, c), n,
+                                              "per_channel")
+    if k == 7:  # the fused-quant tail multiplies by a per-channel 1/s
+        inv = 127.0 / x.abs().amax(dim=(0, 1, 2))
+        check(torch.equal(
+            conv_int8_fused(x, q_w, inv, dequant, bias, reciprocal=True,
+                            packed=packed),
+            conv_int8_fused_plain(x, q_w, inv, dequant, bias,
+                                  reciprocal=True)),
+            f"fused int8 conv (reciprocal scale) differs at the {name} "
+            f"shape {shape}")
+    got = conv_int8_fused(x, q_w, scale, dequant, bias, packed=packed)
+    err = float((got - conv_int8_fused_plain(x, q_w, scale, dequant,
+                                             bias)).abs().max())
+    check(err == 0.0, f"fused int8 conv differs at the {name} shape {shape}")
+    del got
+    q_x = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    check(torch.equal(conv_int8_im2col(q_x, q_w),
+                      conv_int8_plain(q_x, q_w)),
+          f"int8_conv differs at the {name} shape {shape}")
+    return (x, q_w, packed, scale, dequant, bias, q_x), err
+
+
+def _int8_row(card: str, gen, name: str, shape, n: int, k: int,
+              tag: str = "[3]") -> dict:
+    """The fused int8 entry at one conv's shape: exact
+    (:func:`_int8_exact`), and times of the fused kernel, its plain
+    version, the raw kernel with and without its former passes,
+    torch._int_mm on a prebuilt im2col matrix (the GEMM alone) and cuDNN's
+    bf16 conv, beside the bound. Returns the kernels-line row."""
+    from sr_torch.kernels.int8_conv import (
+        conv_int8_fused, conv_int8_fused_plain, conv_int8_im2col)
+
+    b, h, w, c = shape
+    (x, q_w, packed, scale, dequant, bias, q_x), err = _int8_exact(
+        gen, name, shape, n, k)
+    t_k = kernel_ms(lambda: conv_int8_fused(x, q_w, scale, dequant,
+                                            bias, packed=packed))
+    t_p = kernel_ms(lambda: conv_int8_fused_plain(x, q_w, scale,
+                                                  dequant, bias))
+    t_raw = kernel_ms(lambda: conv_int8_im2col(q_x, q_w))
+
+    def former():  # the raw kernel inside the passes it replaced
+        qq = torch.clamp(torch.round(x / scale), -127, 127).to(
+            torch.int8)
+        return conv_int8_im2col(qq, q_w).to(torch.float32) * dequant + bias
+
+    t_f = kernel_ms(former)
+    a, wm = _int_mm_operands(q_x, q_w)
+    try:  # a yardstick only: the port never calls it
+        t_l = kernel_ms(lambda: torch._int_mm(a, wm))
+    except RuntimeError as e:
+        print(f"{tag} torch._int_mm refused {tuple(a.shape)} x "
+              f"{tuple(wm.shape)}: {e}")
+        t_l = None
+    del a, wm
+    xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last bf16
+    kb = q_w.permute(3, 2, 0, 1).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    t_c = kernel_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
+    del xb, q_x
+    ops = 2 * b * h * w * k * k * c * n
+    t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
+    # fused: f32 in, int8 weights, f32 out (the scale, dequantize and
+    # bias tables are below a KB); raw: int8 in, int32 out
+    nbytes = 4 * b * h * w * c + k * k * c * n + 4 * b * h * w * n
+    raw_bytes = b * h * w * c + k * k * c * n + 4 * b * h * w * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    raw_bound = max(t_ops, raw_bytes / HBM_BYTES_PER_S * 1e3)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"{tag} int8_conv {name} {(b, h, w, c)}->{n} k={k}: fused kernel "
+          f"{t_k:.4f} ms (f32 in/out, bound {bound:.4f} ms, {by}), plain "
+          f"{t_p:.4f} ms, raw kernel + its former passes {t_f:.4f} ms, "
+          f"raw kernel alone {t_raw:.4f} ms (bound {raw_bound:.4f}), "
+          f"torch._int_mm on a prebuilt im2col matrix {t_l} ms (GEMM "
+          f"alone), cuDNN bf16 conv {t_c:.4f} ms; max err {err:g} "
+          f"| {card}")
+    del x
+    return dict(
+        name="int8_conv", route="cuda",
+        source="sr_torch/kernels/csrc/int8_conv.cu",
+        replaces="sr/kernels/int8_conv.py:75", launches=None,
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+        bound_by=by, library_ms=t_l, shape=[b, h, w, c, n, k],
+        dtype="f32 -> int8 -> f32 (fused entry)", former_ms=t_f,
+        raw_ms=t_raw, raw_bound_ms=raw_bound)
 
 
 def _seeded_edsr(dtype: str):
@@ -992,9 +1071,12 @@ def _grads(model) -> dict[str, torch.Tensor]:
             model.named_parameters()}
 
 
-def _train_d2s(card: str, gen) -> list[dict]:
+def _train_d2s(card: str, gen, shapes=TRAIN_D2S, r: int = 2,
+               tag: str = "[6]",
+               path: str = "train forward (PS conv bias inside)"
+               ) -> list[dict]:
     """(b) The shuffle under autograd at the training shapes, bf16, with the
-    PS conv's bias, without and with the fused ReLU: forward and the
+    conv's bias, without and with the fused ReLU: forward and the
     gradients of x and of the bias through the kernel equal autograd
     through the plain version, bit for bit. Times of the forward (kernel,
     plain, F.pixel_shuffle) and of the backward (the plain transpose the
@@ -1003,16 +1085,16 @@ def _train_d2s(card: str, gen) -> list[dict]:
         depth_to_space, depth_to_space_plain)
 
     rows = []
-    for h, cin in TRAIN_D2S:
+    for h, cin in shapes:
         shape = (TRAIN_BATCH, h, h, cin)
         x0, b0 = _d2s_operands(shape, torch.bfloat16, gen, True)
-        g = torch.randn((TRAIN_BATCH, 2 * h, 2 * h, cin // 4), device="cuda",
-                        generator=gen).bfloat16()
+        g = torch.randn((TRAIN_BATCH, r * h, r * h, cin // (r * r)),
+                        device="cuda", generator=gen).bfloat16()
         for act in (None, "relu"):
             got = []
             for fn in (depth_to_space, depth_to_space_plain):
                 x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
-                y = fn(x, 2, act, b)
+                y = fn(x, r, act, b)
                 y.backward(g)
                 got.append((y.detach(), x.grad, b.grad))
             torch.cuda.synchronize()
@@ -1020,22 +1102,22 @@ def _train_d2s(card: str, gen) -> list[dict]:
                 check(k.dtype == p.dtype and torch.equal(k, p),
                       f"depth_to_space {name} under autograd differs from "
                       f"the plain version at {shape} act={act}")
-        print(f"[6] depth_to_space {shape} r=2 bf16 under autograd, with the "
+        print(f"{tag} depth_to_space {shape} r={r} bf16 under autograd, with the "
               "bias, act None and relu: forward, grad x and grad bias == "
               "plain autograd (bit for bit)")
         x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
-        y = depth_to_space(x, 2, None, b)
+        y = depth_to_space(x, r, None, b)
         xc = x0.permute(0, 3, 1, 2)
         gc = g.permute(0, 3, 1, 2)
-        t_k = kernel_ms(lambda: depth_to_space(x0, 2, None, b0))
-        t_p = kernel_ms(lambda: depth_to_space_plain(x0, 2, None, b0))
-        t_l = kernel_ms(lambda: F.pixel_shuffle(xc, 2))
+        t_k = kernel_ms(lambda: depth_to_space(x0, r, None, b0))
+        t_p = kernel_ms(lambda: depth_to_space_plain(x0, r, None, b0))
+        t_l = kernel_ms(lambda: F.pixel_shuffle(xc, r))
         t_bw = kernel_ms(lambda: torch.autograd.grad(y, (x, b), g,
                                                      retain_graph=True))
-        t_lbw = kernel_ms(lambda: F.pixel_unshuffle(gc, 2))
+        t_lbw = kernel_ms(lambda: F.pixel_unshuffle(gc, r))
         nbytes = 2 * x0.numel() * x0.element_size()
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"[6] depth_to_space {shape} r=2 bf16 (train forward, with "
+        print(f"{tag} depth_to_space {shape} r={r} bf16 (train forward, with "
               f"bias): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"F.pixel_shuffle {t_l:.4f} ms, bound {bound:.4f} ms (bytes); "
               f"backward (plain transpose + bias sum) {t_bw:.4f} ms, "
@@ -1047,14 +1129,14 @@ def _train_d2s(card: str, gen) -> list[dict]:
             replaces="sr/kernels/depth_to_space.py:73", launches=None,
             max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound,
             bound_by="bytes", library_ms=t_l, shape=list(shape),
-            dtype="bfloat16", path="train forward (PS conv bias inside)",
+            dtype="bfloat16", path=path,
             backward_ms=t_bw, backward_bound_ms=bound,
             backward_library_ms=t_lbw))
         del x0, b0, g, x, b, y, xc, gc
     return rows
 
 
-def _step_card_vs_cpu(cfg, batch) -> None:
+def _step_card_vs_cpu(cfg, batch, tag: str = "[6]") -> None:
     """(c) One f32 full-width step on the card (TF32 off) against the CPU's
     from the same weights and batch: the loss within 1e-5 and every
     gradient within 1e-3 of its largest entry (float32 summation order;
@@ -1076,16 +1158,18 @@ def _step_card_vs_cpu(cfg, batch) -> None:
     loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
     worst = max((float((grads[0][n] - g).abs().max() / g.abs().max()), n)
                 for n, g in grads[1].items())
-    print(f"[6] f32 train step, card vs CPU (TF32 off): loss {losses[0]:.6f} "
+    print(f"{tag} f32 train step, card vs CPU (TF32 off): loss {losses[0]:.6f} "
           f"vs {losses[1]:.6f} (rel {loss_err:.2e}, tol 1e-5); worst "
           f"gradient {worst[1]} rel {worst[0]:.2e} (tol 1e-3)")
     check(loss_err <= 1e-5 and worst[0] <= 1e-3,
           "the card's f32 train step differs from the CPU's")
 
 
-def _preshuffle_modes(cfg, batch) -> None:
-    """(a) and (e): per mode the shuffle's launches per step (2 with the
-    pre-shuffle loss off, 1 'last', 0 'full'); each mode's loss and
+def _preshuffle_modes(cfg, batch, modes=((False, 2), ("last", 1),
+                                         ("full", 0)),
+                      tag: str = "[6]") -> None:
+    """(a) and (e): per mode the shuffle's launches per step (EDSR: 2 with
+    the pre-shuffle loss off, 1 'last', 0 'full'); each mode's loss and
     gradients from the same weights and batch against the default mode's,
     within bf16 tolerance (loss 1e-3 relative, each gradient's L2 error
     5e-2 of its norm; the CPU at full width shows 2e-4 and 5e-3)."""
@@ -1093,7 +1177,7 @@ def _preshuffle_modes(cfg, batch) -> None:
     from sr_torch.train.trainer import Trainer
 
     ref = None
-    for mode, per_step in ((False, 2), ("last", 1), ("full", 0)):
+    for mode, per_step in modes:
         tr = Trainer(cfg.replace(preshuffle_loss=mode))
         st = tr.init_state(3)
         d0 = depth_to_space.launches
@@ -1106,7 +1190,7 @@ def _preshuffle_modes(cfg, batch) -> None:
         tr.train_step(st, batch)
         step = depth_to_space.launches - d0
         name = mode or "off"
-        print(f"[6] preshuffle_loss={name}: all {len(out[1])} parameters "
+        print(f"{tag} preshuffle_loss={name}: all {len(out[1])} parameters "
               f"have a nonzero gradient; depth_to_space launches per "
               f"forward+backward {fwd_bwd}, per train step {step} (want "
               f"{per_step})")
@@ -1118,7 +1202,7 @@ def _preshuffle_modes(cfg, batch) -> None:
         loss_err = abs(out[0] - ref[0]) / abs(ref[0])
         worst = max((float((g - ref[1][n]).norm() / ref[1][n].norm()), n)
                     for n, g in out[1].items())
-        print(f"[6] preshuffle_loss={name} vs off, bf16: loss rel "
+        print(f"{tag} preshuffle_loss={name} vs off, bf16: loss rel "
               f"{loss_err:.2e} (tol 1e-3); worst gradient {worst[1]} L2 rel "
               f"{worst[0]:.2e} (tol 5e-2)")
         check(loss_err <= 1e-3 and worst[0] <= 5e-2,
@@ -1792,6 +1876,457 @@ def phase_eval(card: str, tr, state) -> list[dict]:
     return _eval_kernel_rows(card, launches)
 
 
+#: ESPCN ×4 on Y at full width (64/32 filters, r=4, 1 channel): the
+#: shuffle's r=4, 16→1 shapes by path, (path, B, H, dtype); the int8
+#: ESPCN's int8 sites (name, C, N, k); the train dispatch (the bench's K)
+ESPCN_INT8 = (("conv 1", 1, 64, 5), ("conv 2", 64, 32, 3),
+              ("conv 3", 32, 16, 3))
+ESPCN_K = 300
+#: serving modes (dtype, quantize), all with fused=True: ESPCN has no
+#: affine tail, so each runs its exact graph
+ESPCN_SERVE = (("bfloat16", False), ("float32", False),
+               ("bfloat16", "static"), ("bfloat16", "dynamic"))
+#: RGB images served in (c), (H, W); the second exceeds one 266-px window
+#: (tile 256 + 2·halo 5) and runs tiled
+ESPCN_IMAGES = ((96, 80), (300, 260))
+
+
+def _espcn_forward_shape(hw) -> tuple:
+    """The (B, H, W) batch of LR windows that ``upscale`` hands ESPCN's
+    net for an image of ``hw``: the image whole, or its halo tiles in one
+    call, as ``tiled_predict`` cuts them at ``upscale``'s default tile."""
+    from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
+
+    seen = []
+
+    def record(t):
+        seen.append(tuple(t.shape[:3]))
+        return t.new_zeros((t.shape[0], 4 * t.shape[1], 4 * t.shape[2], 1))
+
+    x = torch.zeros((1, *hw, 1))
+    if max(hw) > 256:
+        tiled_predict(record, x, 4, tile=256, halo=RECEPTIVE_FIELD["espcn"])
+    else:
+        record(x)
+    check(len(seen) == 1, f"ESPCN serving of {hw} takes {len(seen)} calls")
+    return seen[0]
+
+
+def _espcn_train(card: str):
+    """(b) ESPCN trains with the bench's configuration: the f32 step card
+    vs CPU, 'last' against off (1 and 0 shuffles a step), then the train
+    path with its counts zeroed just before and read just after: two K=300
+    dispatches (the loss must fall; 1 shuffle a step, no resblock), and a
+    checkpoint that restores exactly. Returns the trainer, the state and
+    the path's launches."""
+    import tempfile
+
+    from sr_torch.data.datasets import SyntheticDataset
+    from sr_torch.data.pipeline import PatchPipeline
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.checkpoint import Checkpointer, run_meta
+    from sr_torch.utils.config import SRConfig
+
+    ds = SyntheticDataset(num_images=32, size=(160, 160), channels=3,
+                          seed=100)
+    pipe = PatchPipeline([ds[i][..., :1] for i in range(len(ds))],
+                         crop_size=TRAIN_CROP, scale_factor=4,
+                         batch_size=TRAIN_BATCH, channels=1)
+    cfg = SRConfig(model_name="ESPCN", num_channels=1, scale_factor=4,
+                   crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH,
+                   dtype="bfloat16")
+    batch = pipe(torch.Generator(device="cuda").manual_seed(9))
+    _step_card_vs_cpu(cfg, batch, tag="[8]")
+    _preshuffle_modes(cfg, batch, modes=((False, 1), ("last", 0)),
+                      tag="[8]")
+    tr = Trainer(cfg)
+    state = tr.init_state(1)
+    multi = tr.make_multi_step(pipe, ESPCN_K)
+    print(f"[8] ESPCN x4 train: {tr.num_params(state)} params, bf16, crop "
+          f"{TRAIN_CROP} b{TRAIN_BATCH}, MSE, Adam {tr.cfg.effective_lr:g}, "
+          f"PatchPipeline '{pipe.random_scale_mode}' on {pipe.bank.device} "
+          f"{tuple(pipe.bank.shape)}")
+
+    # ---- the train path: counts zeroed just before, read just after ----
+    depth_to_space.launches = 0
+    fused_resblock.launches = 0
+    losses, times = [], []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = multi(state)
+        end.record()
+        end.synchronize()
+        losses.append(float(m["loss"]))
+        times.append(start.elapsed_time(end))
+    launches = {"depth_to_space": depth_to_space.launches,
+                "fused_resblock": fused_resblock.launches}
+    print(f"[8] two K={ESPCN_K} dispatches: {times[0]:.1f} / {times[1]:.1f} "
+          f"ms (one dispatch each, not a marginal: {times[1] / ESPCN_K:.3f} "
+          f"ms/step); mean loss {losses[0]:.5f} then {losses[1]:.5f}; "
+          f"launches {launches} (want {2 * ESPCN_K} and 0) | {card}")
+    check(launches == {"depth_to_space": 2 * ESPCN_K, "fused_resblock": 0},
+          "the ESPCN train path did not run 1 shuffle a step")
+    check(losses[1] < losses[0], "the ESPCN loss did not fall")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="espcn_ckpt_", dir=out_dir)
+    ckpt = Checkpointer(ckpt_dir, meta=run_meta(cfg))
+    ckpt.save(state)
+    restored = ckpt.restore(tr.init_state(99))
+    check(restored.step == state.step == 2 * ESPCN_K and all(
+        torch.equal(p, q) for p, q in zip(restored.model.parameters(),
+                                          state.model.parameters()))
+          and torch.equal(restored.generator.get_state(),
+                          state.generator.get_state()),
+          "the ESPCN checkpoint did not restore the trained state")
+    print(f"[8] checkpoint at step {ckpt.latest_step()} restores the state "
+          "exactly")
+    shutil.rmtree(ckpt_dir)
+    return tr, state, launches
+
+
+def _espcn_serve(card: str, state) -> dict:
+    """(c) The trained params, saved in the JAX package's .npz format,
+    served through ``upscale`` on RGB images (one tiled) in bf16 and f32,
+    int8 static and dynamic, and through one HTTP POST, the counts zeroed
+    just before and read just after; then per-forward launches, f32 card
+    vs CPU, the chroma planes against ``resize_bicubic_u8`` and int8
+    against f32 interiors. Returns the path's launches, in all and by
+    forward shape: ``{("depth_to_space", (B, H, W), dtype): n,
+    ("int8_conv", (B, H, W)): launches of each site}``."""
+    import collections
+
+    from PIL import Image
+
+    from sr_torch.data.native import resize_bicubic_u8
+    from sr_torch.infer import upscale
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+    from sr_torch.kernels.int8_conv import conv_int8_fused, conv_int8_im2col
+    from sr_torch.serve import SRService, serve_background
+    from sr_torch.utils.checkpoint import save_params
+    from sr_torch.utils.interop import to_jax_params
+    from sr_torch.utils.precision import no_tf32
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    path = str(out_dir / "ESPCN_x4_trained.npz")
+    save_params(path, to_jax_params(state.model))
+    rng = np.random.default_rng(8)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in ESPCN_IMAGES]
+    ycc = rng.integers(0, 256, (52, 44, 3), dtype=np.uint8)
+    by_shape = collections.Counter()
+
+    def counted(fn, hw, dtype):
+        """``fn()``, its launches added to ``by_shape`` at the forward
+        shape of an ``hw`` image served with a ``dtype`` model. An int8
+        forward runs each site once and shuffles in float32 (upscale's
+        input dtype, which an int8 site returns); every other shuffle is a
+        float forward's, in the model's dtype (a static predict's first
+        call calibrates with one)."""
+        d0, c0 = depth_to_space.launches, conv_int8_fused.launches
+        out = fn()
+        shape = _espcn_forward_shape(hw)
+        n_q = (conv_int8_fused.launches - c0) // len(ESPCN_INT8)
+        by_shape["int8_conv", shape] += n_q
+        by_shape["depth_to_space", shape, "float32"] += n_q
+        by_shape["depth_to_space", shape, dtype] += (
+            depth_to_space.launches - d0 - n_q)
+        return out
+
+    # ---- the serving path: counts zeroed just before, read just after --
+    for fn in (depth_to_space, fused_resblock, conv_int8_fused,
+               conv_int8_im2col):
+        fn.launches = 0
+    outs = {}
+    for dtype, quantize in ESPCN_SERVE:
+        for img in imgs:
+            t0 = time.perf_counter()
+            out = counted(functools.partial(
+                upscale, img, "ESPCN", path, dtype=dtype, quantize=quantize,
+                fused=True), img.shape[:2], dtype)
+            ms = (time.perf_counter() - t0) * 1e3
+            h, w = img.shape[:2]
+            check(out.shape == (4 * h, 4 * w, 3) and out.dtype == np.uint8,
+                  f"ESPCN upscale output {out.shape} {out.dtype}")
+            outs[dtype, quantize, img.shape] = out
+            print(f"[8] upscale ESPCN {h}x{w} RGB {dtype} int8 {quantize}: "
+                  f"{out.shape} uint8 in {ms:.1f} ms (host clock, first "
+                  "call loads/calibrates)")
+    got = upscale(ycc, "ESPCN", path, color_space="ycbcr", fused=True)
+    bc = resize_bicubic_u8(ycc, (4 * ycc.shape[0], 4 * ycc.shape[1]))
+    check(np.array_equal(got[..., 1:], bc[..., 1:]),
+          "the YCbCr output's chroma is not the bicubic upscale's")
+    service = SRService(model_name="ESPCN", params=path, scale_factor=4)
+    httpd, port = serve_background(service)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+
+    def post():
+        conn.request("POST", "/upscale", body=_png(imgs[0]),
+                     headers={"Content-Type": "image/png"})
+        resp = conn.getresponse()
+        return resp, resp.read()
+
+    # the service serves a bf16 model
+    resp, body = counted(post, imgs[0].shape[:2], "bfloat16")
+    conn.close()
+    httpd.shutdown()
+    httpd.server_close()
+    check(resp.status == 200, f"POST /upscale ESPCN: {resp.status}")
+    check(np.array_equal(np.asarray(Image.open(io.BytesIO(body))),
+                         outs["bfloat16", False, imgs[0].shape]),
+          "the served ESPCN PNG differs from a direct upscale")
+    launches = {"depth_to_space": depth_to_space.launches,
+                "int8_conv": conv_int8_fused.launches,
+                "int8_conv raw entry": conv_int8_im2col.launches,
+                "fused_resblock": fused_resblock.launches}
+    print(f"[8] chroma of a YCbCr upscale == resize_bicubic_u8 (bit for "
+          f"bit); POST /upscale == direct upscale; serving-path launches: "
+          f"{launches}; by forward shape: {dict(by_shape)}")
+    check(launches["depth_to_space"] > 0 and launches["int8_conv"] > 0
+          and launches["fused_resblock"] == 0
+          and launches["int8_conv raw entry"] == 0,
+          "the ESPCN serving path must shuffle and run its int8 convs "
+          "through the kernels, and run no resblock")
+
+    # ---- per-forward counts (the loaded functions are cached) ----
+    for dtype, quantize in ESPCN_SERVE:
+        c0, d0, r0 = (conv_int8_fused.launches, depth_to_space.launches,
+                      fused_resblock.launches)
+        upscale(imgs[0], "ESPCN", path, dtype=dtype, quantize=quantize,
+                fused=True)
+        got = (conv_int8_fused.launches - c0, depth_to_space.launches - d0,
+               fused_resblock.launches - r0)
+        print(f"[8] one ESPCN {dtype} int8 {quantize} forward: int8_conv "
+              f"+{got[0]}, depth_to_space +{got[1]}, fused_resblock "
+              f"+{got[2]}")
+        check(got == ((3 if quantize else 0), 1, 0),
+              "unexpected ESPCN launches per forward")
+
+    # ---- f32 card vs CPU (TF32 off on the card), every pixel ----
+    for img in imgs:
+        with no_tf32():
+            card_out = upscale(img, "ESPCN", path, dtype="float32",
+                               fused=True)
+        cpu_out = upscale(img, "ESPCN", path, dtype="float32", fused=True,
+                          device="cpu")
+        d = np.abs(card_out.astype(np.int32) - cpu_out)
+        print(f"[8] ESPCN f32 upscale {img.shape[:2]}, card vs CPU: max "
+              f"{d.max()} u8 levels, mean {d.mean():.5f} (tol 1)")
+        check(d.max() <= 1, "the card's ESPCN upscale differs from the CPU's")
+
+    # ---- int8 against f32, interiors (ESPCN's receptive field, 5 LR px) --
+    m = 5 * 4
+    for quantize in ("static", "dynamic"):
+        for img in imgs:
+            a = outs["bfloat16", quantize, img.shape].astype(np.int32)
+            b = outs["float32", False, img.shape].astype(np.int32)
+            d = np.abs(a - b)[m:-m, m:-m]
+            print(f"[8] ESPCN int8 {quantize} vs f32 interior "
+                  f"{img.shape[:2]}: max {d.max()} u8 levels, mean "
+                  f"{d.mean():.4f} (tol mean 4)")
+            check(d.mean() <= 4, "ESPCN int8 interior too far from f32")
+    return launches, by_shape
+
+
+def _espcn_eval(card: str, tr, state) -> dict:
+    """(d) The trained ESPCN through ``evaluate(channels=1)`` on the
+    synthetic set and 8 procedural 384² test images (YCbCr), host and
+    device metrics, the counts zeroed just before and read just after (1
+    shuffle and no resblock a predict call); device metrics within 1e-4
+    dB and 1e-5 SSIM of the host's; images/s by CUDA events. Returns the
+    path's launches and its predict calls on the procedural set, each a
+    (1, 96, 96) forward."""
+    from sr_torch.data.datasets import get_test_set
+    from sr_torch.data.procedural import ProceduralDataset
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    synthetic = get_test_set(str(out_dir), "synthetic")
+    proc = ProceduralDataset(num_images=8, size=(384, 384), split="test",
+                             color_space="ycbcr")
+    for ds in (synthetic, proc):
+        for i in range(len(ds)):
+            ds[i]
+    predict = functools.partial(tr.make_predict_fn(), state.model)
+    kw = dict(scale_factor=4, channels=1, color_space="ycbcr")
+    sets = (("synthetic", synthetic), ("procedural", proc))
+    for _, ds in sets:  # warm-up: cuDNN's plans at each shape
+        for on_dev in (False, True):
+            _timed_eval(predict, ds, on_device_metrics=on_dev, **kw)
+
+    # ---- the eval path: counts zeroed just before, read just after ----
+    depth_to_space.launches = 0
+    fused_resblock.launches = 0
+    runs = {(name, on_dev): _timed_eval(predict, ds,
+                                        on_device_metrics=on_dev, **kw)
+            for name, ds in sets for on_dev in (False, True)}
+    launches = {"depth_to_space": depth_to_space.launches,
+                "fused_resblock": fused_resblock.launches}
+    calls = sum(r[3].calls for r in runs.values())
+    print(f"[8] ESPCN eval-path launches over {calls} predict calls: "
+          f"{launches} (want {calls} and 0)")
+    check(launches == {"depth_to_space": calls, "fused_resblock": 0},
+          "the ESPCN eval path did not run 1 shuffle a predict")
+    for name, _ in sets:
+        host, dev = runs[name, False][0], runs[name, True][0]
+        _check_eval(host, f"ESPCN {name}")
+        _check_eval(dev, f"ESPCN {name}")
+        pairs = list(zip(host.images, dev.images))
+        dp = max(abs(a.psnr_sr - b.psnr_sr) for a, b in pairs)
+        dss = max(abs(a.ssim_sr - b.ssim_sr) for a, b in pairs)
+        print(f"[8] ESPCN eval {name} (Y): host vs device metrics, PSNR max "
+              f"diff {dp:.3g} dB (tol 1e-4), SSIM {dss:.3g} (tol 1e-5); "
+              f"model {host.avg_psnr_sr:.4f} dB, bicubic "
+              f"{host.avg_psnr_bicubic:.4f} dB")
+        check(dp <= 1e-4 and dss <= 1e-5,
+              f"ESPCN {name}: device metrics differ from the host's")
+        for on_dev in (False, True):
+            res, ms, pred_ms, counted = runs[name, on_dev]
+            n = len(res.images)
+            print(f"[8] ESPCN eval {name}, {'device' if on_dev else 'host'} "
+                  f"metrics: {n / ms * 1e3:.2f} images/s, {ms / n:.3f} "
+                  f"ms/image (CUDA events), predict {pred_ms / n:.3f} "
+                  f"ms/image ({100 * pred_ms / ms:.1f}% of the span) | {card}")
+    return launches, sum(runs["procedural", on_dev][3].calls
+                         for on_dev in (False, True))
+
+
+def phase_espcn(card: str) -> list[dict]:
+    """Phase 8: ESPCN ×4 on Y at full width. (a) the shuffle (r=4, 16→1)
+    and the fused int8 entry at ESPCN's shapes, against their plain
+    versions and timed; (b) training, (c) serving, (d) eval through the
+    port's entry points, each with its own zeroed counts. Returns the
+    kernel rows, each with the launches of its path."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d2s_rows, int8_rows = [], []
+    for h, w in ESPCN_IMAGES:  # the forward shapes upscale gives the net
+        shape = _espcn_forward_shape((h, w))
+        for dtype, what in ((torch.bfloat16, "bf16 serving"),
+                            (torch.float32, "f32 and int8 serving")):
+            d2s_rows.append(_d2s_row(
+                card, gen, (*shape, 16), 4, dtype, tag="[8]",
+                path=f"ESPCN {what}, {h}x{w} image", odd=(1, 37, 53)))
+        for name, c, n, k in ESPCN_INT8:
+            row = _int8_row(card, gen, f"ESPCN {name}", (*shape, c), n, k,
+                            tag="[8]")
+            row["path"] = f"ESPCN int8 serving, {name}, {h}x{w} image"
+            int8_rows.append(row)
+    # b16 at 128² LR, phase 5's EDSR serving batch: no ESPCN path serves
+    # it, so it is checked and timed for comparison but has no row
+    for dtype in (torch.bfloat16, torch.float32):
+        _d2s_row(card, gen, (16, 128, 128, 16), 4, dtype, tag="[8]",
+                 path="b16 128², no path serves it")
+    for name, c, n, k in ESPCN_INT8:
+        _int8_row(card, gen, f"ESPCN {name} (b16 128², no path serves it)",
+                  (16, 128, 128, c), n, k, tag="[8]")
+    eval_row = _d2s_row(card, gen, (1, 96, 96, 16), 4, torch.bfloat16,
+                        tag="[8]", path="ESPCN eval, procedural direct",
+                        odd=(1, 37, 53))
+    train_row = _train_d2s(card, gen, shapes=((16, 16),), r=4, tag="[8]",
+                           path="ESPCN train forward (last conv's bias "
+                                "inside)")[0]
+    tr, state, train_launches = _espcn_train(card)
+    _, by_shape = _espcn_serve(card, state)
+    _, eval_row["launches"] = _espcn_eval(card, tr, state)
+    train_row["launches"] = train_launches["depth_to_space"]
+    for row in d2s_rows:
+        row["launches"] = by_shape["depth_to_space", tuple(row["shape"][:3]),
+                                   row["dtype"]]
+    for row in int8_rows:
+        row["launches"] = by_shape["int8_conv", tuple(row["shape"][:3])]
+    rows = d2s_rows + [eval_row, train_row] + int8_rows
+    check(all(row["launches"] > 0 for row in rows),
+          "an ESPCN kernel row's shape was not launched on its path: "
+          f"{[(r['name'], r['shape'], r['launches']) for r in rows]}")
+    print(f"[8] phase seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
+BENCH_KEYS = ("value", "vs_baseline", "bf16_exact_mps", "bf16_fused_mps",
+              "bf16_fused_vs_baseline", "bf16_best_mps")
+
+
+def _bench_shapes_exact(card: str) -> None:
+    """Each kernel at the bench's large batch and the shapes its serving
+    variants give it, against its plain version on the card: the shuffle
+    (bf16) at the exact graph's two r=2 stages and the fused tails' r=4,
+    with and without bias (the second stage's 3.2e9 elements pass 2^31);
+    the resblock within phase 3's tolerance; the fused int8 entry at the
+    int8-static fused path's head, body and collapsed-tail sites, bit for
+    bit (:func:`_int8_exact`)."""
+    from sr_torch import bench
+    from sr_torch.kernels.fused_resblock import (
+        fused_resblock, fused_resblock_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, n = bench.B_LARGE, bench.LR_SIZE
+    for h, cin, r in D2S_SHAPES:
+        x, bias = _d2s_operands((b, h, h, cin), torch.bfloat16, gen, True)
+        _d2s_exact(x, r, bias)
+        del x, bias
+        torch.cuda.empty_cache()
+    ops = _resblock_operands((b, n, n, 64), torch.bfloat16, gen)
+    got = fused_resblock(*_kernel_operands(ops))
+    err = float((got.float() - fused_resblock_plain(*ops).float())
+                .abs().max())
+    check(err <= TOL[torch.bfloat16],
+          f"fused_resblock disagrees at {(b, n, n, 64)}: {err}")
+    del ops, got
+    sites = [s for s in INT8_SHAPES
+             if s[0] in ("head", "body", "fused-quant tail")]
+    for name, _, _, _, c, n_out, k in sites:
+        _int8_exact(gen, name, (b, n, n, c), n_out, k)
+        torch.cuda.empty_cache()
+    print(f"[9] at b{b}: depth_to_space == plain at "
+          f"{[(b, h, h, cin, r) for h, cin, r in D2S_SHAPES]} bf16 with and "
+          f"without bias; fused_resblock {(b, n, n, 64)} bf16 max |kernel - "
+          f"plain| {err:.3g} (tol {TOL[torch.bfloat16]}); int8_conv fused "
+          f"entry == plain at {[s[0] for s in sites]} | {card}")
+
+
+def phase_bench(card: str, entries: list[dict]) -> None:
+    """Phase 9: ``sr_torch.bench``'s whole measurement in process, with its
+    own constants, the counts zeroed just before and read just after (all
+    three kernels must run); its JSON line on a line of its own, every key
+    present and positive. Each kernel is first held against its plain
+    version at the bench's b192 shapes."""
+    from sr_torch import bench
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+    from sr_torch.kernels.int8_conv import conv_int8_fused
+
+    t0 = time.perf_counter()
+    _bench_shapes_exact(card)
+    torch.cuda.empty_cache()
+    kernels = {"depth_to_space": depth_to_space,
+               "fused_resblock": fused_resblock, "int8_conv": conv_int8_fused}
+    for fn in kernels.values():
+        fn.launches = 0
+    record = bench.run()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    seconds = time.perf_counter() - t0
+    print(json.dumps(record))
+    print(f"[9] bench launches: {launches}; phase seconds {seconds:.1f} "
+          f"| {card}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel did not run in the bench: {launches}")
+    for name, n in launches.items():  # on each kernel's first row
+        next(e for e in entries if e["name"] == name)["bench_launches"] = n
+    check(record["unit"] == "MP/s" and isinstance(record["metric"], str)
+          and all(record[k] > 0 for k in BENCH_KEYS),
+          f"the bench record lacks a positive key: {record}")
+    check(set(record["train"]) == {"EDSR", "ESPCN"} and all(
+        v["steps_per_s"] > 0 and v["model_tflops"] > 0
+        for v in record["train"].values()),
+        f"the bench's train axis is incomplete: {record['train']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -1809,6 +2344,9 @@ def main() -> int:
     rows, tr, state = phase_train(card, entries[0], entries[1])
     entries += rows
     entries += phase_eval(card, tr, state)
+    del tr, state
+    entries += phase_espcn(card)
+    phase_bench(card, entries)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

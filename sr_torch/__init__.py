@@ -14,4 +14,6 @@ Slice 5 trains it: ``sr_torch.data.pipeline.PatchPipeline`` on the card and
 checkpoints with exact resume). Slice 7 evaluates it:
 ``sr_torch.eval.runner.evaluate`` on ``sr_torch.data.datasets.get_test_set``
 (Pillow-exact degradation, Y-channel PSNR/SSIM on the host or the card).
+Slice 8 trains, serves and evaluates ESPCN ×4 on Y, and ports ``bench.py``
+as ``python -m sr_torch.bench``.
 """

@@ -1,19 +1,20 @@
 """One-call inference API: upscale an image with a trained model.
 
-Port of ``sr/infer.py`` for 3-channel models that take the raw LR image
-(EDSR), in float or int8: it loads exported params (the JAX package's
+Port of ``sr/infer.py`` for models that take the raw LR image (EDSR on RGB,
+ESPCN on Y), in float or int8: it loads exported params (the JAX package's
 ``.npz`` format), routes big images through halo-tiled inference,
 optionally uses the fused affine tail, runs every conv as int8
-(``quantize``), and can quantize the output to uint8 on the device.
+(``quantize``), and can quantize the output to uint8 on the device. A
+1-channel model super-resolves the luma of an RGB (or YCbCr) image and
+merges bicubic-upscaled chroma back.
 
     from sr_torch.infer import upscale
     sr_img = upscale(img_u8, "EDSR", "results/EDSR_x4/EDSR_params.npz",
                      scale_factor=4, quantize="static", fused=True)
 
 Every entry point runs on ``device="cuda"`` unless the caller asks for the
-CPU. 1-channel and pre-upsample models (bicubic input, chroma merge),
-``self_ensemble`` and ``net_scale`` land in later port slices and raise
-``NotImplementedError``.
+CPU. Pre-upsample models (bicubic input: SRCNN, VDSR), ``self_ensemble`` and
+``net_scale`` land in later port slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import os
 import numpy as np
 import torch
 
+from sr_torch.data.native import resize_bicubic_u8
+from sr_torch.eval.metrics import rgb_to_ycbcr, ycbcr_to_rgb
 from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
 from sr_torch.kernels.fused_tail import (
     make_fused_tail_predict, make_fused_tail_predict_quant)
@@ -41,13 +44,16 @@ def make_serving_predict(model, fused: bool, quantize: bool | str = False,
                          calib_headroom: float = 1.0,
                          output_u8: bool = False, calib_batches=None):
     """The serving-variant policy (``sr/infer.py:make_serving_predict``):
-    ``fused`` collapses the affine tail (EDSR), else the exact graph runs.
-    ``quantize`` runs every conv as int8: ``True``/``"dynamic"`` with
-    per-sample activation scales on the exact graph; ``"static"`` with
-    scales calibrated on the first batch (or ``calib_batches``), composed
-    with the collapsed tail when ``fused``. ``output_u8`` quantizes the
-    output to uint8 on the device. The returned function takes and returns
-    NHWC tensors on the model's device."""
+    ``fused`` collapses the affine tail of a model that has one (EDSR);
+    a model without a ``tail`` (ESPCN), or ``fused=False``, runs the exact
+    graph. ``quantize`` runs every conv as int8: ``True``/``"dynamic"``
+    with per-sample activation scales on the exact graph; ``"static"``
+    with scales calibrated on the first batch (or ``calib_batches``),
+    composed with the collapsed tail when ``fused`` and the model has one.
+    ``output_u8`` quantizes the output to uint8 on the device. The
+    returned function takes and returns NHWC tensors on the model's
+    device."""
+    fused = fused and hasattr(model, "tail")
     if quantize:
         if quantize not in (True, "dynamic", "static"):
             raise ValueError(
@@ -73,15 +79,16 @@ def _load(model_name: str, params_path: str, params_mtime: float,
           scale_factor: int, num_channels: int | None, dtype: str,
           fused: bool, quantize: bool | str, output_u8: bool,
           calib_headroom: float, device: torch.device):
+    """``(channels, predict)`` for the model at ``params_path``."""
     # params_mtime keys the cache so a re-exported file at the same path
     # is picked up instead of serving stale weights
     del params_mtime
     spec = get_spec(model_name)
-    channels = num_channels or spec.default_channels
-    if spec.pre_upsample or channels != 3:
+    if spec.pre_upsample:
         raise NotImplementedError(
-            f"{model_name} with {channels} channels (bicubic input / chroma "
-            f"merge) {_LATER}")
+            f"{model_name} takes a bicubic-upscaled input (pre-upsample "
+            f"models) {_LATER}")
+    channels = num_channels or spec.default_channels
     cfg = SRConfig(model_name=model_name, scale_factor=scale_factor,
                    num_channels=channels, dtype=dtype)
     model = spec.make_model(cfg)
@@ -92,9 +99,14 @@ def _load(model_name: str, params_path: str, params_mtime: float,
     model = model.to(device).eval()
     # a static predict keeps its calibration in the cached function, so
     # later requests reuse the first request's scales, as in sr.infer
-    return make_serving_predict(model, fused, quantize,
-                                calib_headroom=calib_headroom,
-                                output_u8=output_u8)
+    return channels, make_serving_predict(model, fused, quantize,
+                                          calib_headroom=calib_headroom,
+                                          output_u8=output_u8)
+
+
+def _to_u8(y) -> np.ndarray:
+    """A float [0, 255] array → uint8, rounded half to even and clipped."""
+    return np.clip(np.round(np.asarray(y)), 0, 255).astype(np.uint8)
 
 
 def upscale(
@@ -107,46 +119,69 @@ def upscale(
     tile: int | None = 256,
     fused: bool = False,
     quantize: bool | str = False,
+    color_space: str = "rgb",
     output_u8: bool = True,
     calib_headroom: float = 1.25,
     self_ensemble: bool = False,
     net_scale: int | None = None,
     device: str | torch.device = "cuda",
 ) -> np.ndarray:
-    """Super-resolve a uint8 (H, W[, C]) image → uint8 (rH, rW, 3).
+    """Super-resolve a uint8 (H, W[, C]) image → uint8 (rH, rW, C).
 
     ``tile``: route images larger than this through exact halo-tiled
     inference (None = always full-image). ``fused``: use the collapsed
-    affine tail (interior-identical, faster; ``sr_torch/kernels/
-    fused_tail.py``). ``quantize``: int8 convs (``sr_torch/quant.py``):
-    ``True``/``"dynamic"`` or ``"static"``, which calibrates activation
-    scales on the first image (the first chunk of tiles) and composes with
-    ``fused=True``; ``calib_headroom`` multiplies those scales, a clip
-    margin for inputs hotter than the first. ``output_u8`` (default on):
-    quantize to uint8 on the device, bit-equal to the host conversion. A
-    3-channel model takes the image in whatever color space it was trained
-    in. ``device`` defaults to the card; pass ``"cpu"`` for the plain
-    PyTorch versions of the kernels.
+    affine tail where the model has one (interior-identical, faster;
+    ``sr_torch/kernels/fused_tail.py``). ``quantize``: int8 convs
+    (``sr_torch/quant.py``): ``True``/``"dynamic"`` or ``"static"``, which
+    calibrates activation scales on the first image (the first chunk of
+    tiles) and composes with ``fused=True``; ``calib_headroom`` multiplies
+    those scales, a clip margin for inputs hotter than the first.
+    ``output_u8`` (default on): quantize to uint8 on the device, bit-equal
+    to the host conversion. ``color_space`` declares how a 3-channel
+    ``img`` is encoded ('rgb' or 'ycbcr'): a 1-channel model
+    super-resolves the luma (converting from RGB when needed), merges
+    bicubic-upscaled chroma back and returns the input's encoding; a
+    3-channel model takes the image as it is (feed it the space it was
+    trained in). ``device`` defaults to the card; pass ``"cpu"`` for the
+    plain PyTorch versions of the kernels.
     """
     if self_ensemble or net_scale:
         raise NotImplementedError(f"self_ensemble / net_scale {_LATER}")
     device = resolve_device(device)
-    fn = _load(model_name, params_path, os.path.getmtime(params_path),
-               scale_factor, num_channels, dtype, fused, quantize, output_u8,
-               calib_headroom, device)
+    channels, fn = _load(model_name, params_path,
+                         os.path.getmtime(params_path), scale_factor,
+                         num_channels, dtype, fused, quantize, output_u8,
+                         calib_headroom, device)
     if img.ndim == 2:
         img = img[:, :, None]
-    if img.shape[-1] == 1:
-        img = np.repeat(img, 3, axis=2)
-    x = torch.from_numpy(img.astype(np.float32)[None] / 255.0).to(device)
+    r = scale_factor
+    h, w = img.shape[:2]
+    # a 1-channel model works on luma: RGB input goes to YCbCr first,
+    # rounded to u8 as the JAX package rounds it
+    to_rgb_out = channels == 1 and img.shape[-1] == 3 and color_space == "rgb"
+    if to_rgb_out:
+        img = _to_u8(rgb_to_ycbcr(img.astype(np.float32)).numpy())
+    chroma = channels == 1 and img.shape[-1] == 3
+    if channels == 1:
+        net_in = img[..., :1]
+    else:
+        net_in = img if img.shape[-1] == 3 else np.repeat(img, 3, axis=2)
+    x = torch.from_numpy(net_in.astype(np.float32)[None] / 255.0).to(device)
     halo = RECEPTIVE_FIELD.get(model_name.lower(), 48)
     with torch.inference_mode():
         if tile is not None and max(x.shape[1], x.shape[2]) > tile:
-            out = tiled_predict(fn, x, scale_factor, tile=tile, halo=halo)
+            out = tiled_predict(fn, x, r, tile=tile, halo=halo)
         else:
             out = fn(x)
         out = out[0].cpu()
     if out.dtype == torch.uint8:  # device already quantized (output_u8)
-        return out.numpy()
-    return np.clip(np.round(out.float().numpy() * 255.0),
-                   0, 255).astype(np.uint8)
+        sr_u8 = out.numpy()
+    else:
+        sr_u8 = _to_u8(out.float().numpy() * 255.0)
+    if chroma:
+        # the model's luma with one full-image bicubic upscale's chroma
+        bc_full = resize_bicubic_u8(img, (h * r, w * r))
+        sr_u8 = np.concatenate([sr_u8[..., :1], bc_full[..., 1:]], axis=-1)
+    if to_rgb_out:
+        sr_u8 = _to_u8(ycbcr_to_rgb(sr_u8.astype(np.float32)).numpy())
+    return sr_u8

@@ -56,10 +56,9 @@ def register(spec: ModelSpec) -> ModelSpec:
 
 
 def get_spec(name: str) -> ModelSpec:
+    # importing this module ran sr_torch/models/__init__.py, which
+    # registers every port model
     key = name.lower()
-    if key not in _REGISTRY:
-        import sr_torch.models.edsr  # noqa: F401  (registers EDSR)
-
     if key not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; the port serves "
                        f"{sorted(_REGISTRY)} (other models land in a later "

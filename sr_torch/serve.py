@@ -12,9 +12,13 @@ Endpoints:
   POST /upscale          -> request body: PNG/JPEG bytes;
                             response: image/png of the upscaled image
 
+A 1-channel model (ESPCN) super-resolves the luma of the decoded RGB
+image and returns RGB, as ``upscale`` does.
+
 Usage:
   python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --port 8000
   python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --quantize static
+  python -m sr_torch.serve --model_name ESPCN --params ESPCN_params.npz
 """
 
 from __future__ import annotations

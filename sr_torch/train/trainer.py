@@ -63,7 +63,7 @@ class Trainer:
             raise ValueError(
                 f"{self.spec.name}: preshuffle_loss requested but the spec "
                 "defines no pre-shuffle fold (only tail-shuffle models "
-                "support it — EDSR 'last'/'full')")
+                "support it — ESPCN 'last', EDSR 'last'/'full')")
         if mode and self.spec.has_batchnorm:
             raise ValueError(
                 f"{self.spec.name}: preshuffle_loss does not support "

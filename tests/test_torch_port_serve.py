@@ -7,6 +7,7 @@ kernels take their plain PyTorch versions.
 """
 
 import ast
+import dataclasses
 import http.client
 import io
 import json
@@ -24,7 +25,9 @@ from sr.infer import upscale as jax_upscale
 from sr.models.edsr import Net as FlaxEDSR
 from sr.utils.checkpoint import save_params as jax_save_params
 from sr_torch.infer import make_serving_predict, upscale
+from sr_torch.models import registry
 from sr_torch.models.edsr import Net
+from sr_torch.models.registry import get_spec
 from sr_torch.serve import SRService, serve_background
 
 torch.set_num_threads(1)
@@ -96,12 +99,16 @@ def test_upscale_defaults_to_the_card(edsr_params):
         upscale(_img(2), "EDSR", edsr_params)
 
 
-def test_upscale_refuses_what_a_later_slice_brings(edsr_params):
+def test_upscale_refuses_what_a_later_slice_brings(edsr_params, monkeypatch):
     with pytest.raises(NotImplementedError, match="later port slice"):
         upscale(_img(3), "EDSR", edsr_params, self_ensemble=True,
                 device="cpu")
+    # 1-channel models serve since ESPCN (tests/test_torch_espcn.py); a
+    # pre-upsample model (bicubic input: SRCNN, VDSR) still waits
+    pre = dataclasses.replace(get_spec("EDSR"), name="PRE", pre_upsample=True)
+    monkeypatch.setitem(registry._REGISTRY, "pre", pre)
     with pytest.raises(NotImplementedError, match="later port slice"):
-        upscale(_img(3), "EDSR", edsr_params, num_channels=1, device="cpu")
+        upscale(_img(3), "PRE", edsr_params, device="cpu")
     with pytest.raises(NotImplementedError, match="later port slice"):
         upscale(_img(3), "EDSR", edsr_params, scale_factor=2, net_scale=4,
                 device="cpu")
