@@ -92,6 +92,28 @@ Phases; any failure raises and exits non-zero without the final line:
    printed on a line of its own and checked: every key present and
    positive, ``train`` holding EDSR and ESPCN.
 
+10. SRCNN, VDSR and DRCN ×4 on Y at full width (SRCNN 9-5-5 64/32, VDSR
+   20 × 64 without biases, DRCN 64 filters × 16 recursions), the
+   pre-upsample family, whose only port kernel is the int8 conv: (a) the
+   fused int8 entry at every int8 site shape ``upscale`` gives each net
+   for (c)'s two images (the ×4 bicubic upscale whole, and in 4 halo
+   tiles), exact against its plain version and timed as in phase 3, with
+   cuDNN's bf16 conv as the library time; per model (b) training with the
+   bench's recipe on the corpus's first plane ('bc' input, bf16, crop 64,
+   b32, the model's own optimizer): f32 step card vs CPU, 3 single steps
+   (VDSR's clip scale), two K-step dispatches (DRCN's α) after which a
+   fixed probe batch's loss has fallen,
+   a checkpoint that restores exactly, no port kernel launched; (c)
+   serving through ``upscale`` in bf16, f32, int8 static and dynamic and
+   one HTTP POST: f32 card vs CPU within one u8 level, tiled vs whole, a
+   YCbCr image's chroma == ``resize_bicubic_u8``, int8 vs f32 interior
+   mean ≤ 4 levels, 3 / 20 / 50 int8 convs a forward and no shuffle or
+   resblock; (d) ``evaluate(pre_upsample=True)`` on the synthetic set and
+   8 procedural 384² images, device metrics within 1e-4 dB / 1e-5 SSIM of
+   the host's, images/s. Each path's counts are zeroed just before it and
+   read just after; each kernel row carries the launches of its shape on
+   its model's serving path.
+
 It prints the bench's JSON line, a ``{"kernels": [...]}`` JSON line, then
 the card line, then as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -700,7 +722,7 @@ def _int8_row(card: str, gen, name: str, shape, n: int, k: int,
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
         bound_by=by, library_ms=t_l, shape=[b, h, w, c, n, k],
         dtype="f32 -> int8 -> f32 (fused entry)", former_ms=t_f,
-        raw_ms=t_raw, raw_bound_ms=raw_bound)
+        raw_ms=t_raw, raw_bound_ms=raw_bound, cudnn_bf16_ms=t_c)
 
 
 def _seeded_edsr(dtype: str):
@@ -1136,11 +1158,12 @@ def _train_d2s(card: str, gen, shapes=TRAIN_D2S, r: int = 2,
     return rows
 
 
-def _step_card_vs_cpu(cfg, batch, tag: str = "[6]") -> None:
+def _step_card_vs_cpu(cfg, batch, tag: str = "[6]", step: int = 0) -> None:
     """(c) One f32 full-width step on the card (TF32 off) against the CPU's
-    from the same weights and batch: the loss within 1e-5 and every
-    gradient within 1e-3 of its largest entry (float32 summation order;
-    1e-5 to 6e-6 is what f32 against f64 shows on the CPU)."""
+    from the same weights and batch, at the schedule's ``step``: the loss
+    within 1e-5 and every gradient within 1e-3 of its largest entry
+    (float32 summation order; 1e-5 to 6e-6 is what f32 against f64 shows
+    on the CPU)."""
     from sr_torch.train.trainer import Trainer
     from sr_torch.utils.precision import no_tf32
 
@@ -1151,7 +1174,7 @@ def _step_card_vs_cpu(cfg, batch, tag: str = "[6]") -> None:
         st = tr.init_state(5)
         b = {k: v.to(device) for k, v in batch.items()}
         with no_tf32():
-            loss, _ = tr.loss_fn(st.model, b, 0)
+            loss, _ = tr.loss_fn(st.model, b, step)
             loss.backward()
         losses.append(float(loss.detach()))
         grads.append(_grads(st.model))
@@ -2248,6 +2271,394 @@ def phase_espcn(card: str) -> list[dict]:
     return rows
 
 
+#: the pre-upsample family ×4 on Y at full width (phase 10): each model's
+#: int8 sites with distinct shapes (name, C, N, k) and its int8 convs a
+#: forward (DRCN: 2 embedding sites, 3 recursion sites × 16)
+PRE_INT8 = {
+    "SRCNN": (("conv 1 (9x9)", 1, 64, 9), ("conv 2 (5x5)", 64, 32, 5),
+              ("conv 3 (5x5)", 32, 1, 5)),
+    "VDSR": (("conv 1", 1, 64, 3), ("body x18", 64, 64, 3),
+             ("conv 20", 64, 1, 3)),
+    "DRCN": (("embed 1", 1, 64, 3), ("embed 2 + recursion x32", 64, 64, 3),
+             ("reconstruction x16", 64, 1, 3)),
+}
+PRE_PER_FWD = {"SRCNN": 3, "VDSR": 20, "DRCN": 50}
+#: K of the two train dispatches; the run's length is 2K + 3 steps, so
+#: DRCN's α anneals over them
+PRE_K = {"SRCNN": 100, "VDSR": 40, "DRCN": 50}
+#: RGB LR images served in (c): the net sees their ×4 bicubic upscale,
+#: (96, 80) whole and (320, 260) in 4 halo tiles at upscale's tile 256
+PRE_IMAGES = ((24, 20), (80, 65))
+
+
+def _pre_forward_shape(name: str, hw) -> tuple:
+    """The (B, H, W) batch that ``upscale`` hands a pre-upsample net for an
+    LR image of ``hw``: its ×4 bicubic upscale whole, or that upscale's
+    halo tiles in one call, as ``tiled_predict`` cuts them."""
+    from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
+
+    seen = []
+
+    def record(t):
+        seen.append(tuple(t.shape[:3]))
+        return t
+
+    x = torch.zeros((1, 4 * hw[0], 4 * hw[1], 1))
+    if max(x.shape[1:3]) > 256:
+        tiled_predict(record, x, 1, tile=256,
+                      halo=RECEPTIVE_FIELD[name.lower()])
+    else:
+        record(x)
+    check(len(seen) == 1, f"{name} serving of {hw} takes {len(seen)} calls")
+    return seen[0]
+
+
+class _Int8Shapes:
+    """Inside ``with``, tallies each fused int8 launch of the int8 sites by
+    (B, H, W, C, N, k); the wrapper still counts its launches."""
+
+    def __init__(self):
+        import collections
+
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        from sr_torch import quant
+
+        self._real = real = quant.conv_int8_fused
+
+        def seen(x, q_w, *args, **kwargs):
+            self.counts[(*x.shape, q_w.shape[-1], q_w.shape[0])] += 1
+            return real(x, q_w, *args, **kwargs)
+
+        quant.conv_int8_fused = seen
+        return self
+
+    def __exit__(self, *exc):
+        from sr_torch import quant
+
+        quant.conv_int8_fused = self._real
+
+
+def _zero_counts() -> dict:
+    from sr_torch.kernels.depth_to_space import depth_to_space
+    from sr_torch.kernels.fused_resblock import fused_resblock
+    from sr_torch.kernels.int8_conv import conv_int8_fused, conv_int8_im2col
+
+    fns = {"depth_to_space": depth_to_space, "fused_resblock": fused_resblock,
+           "int8_conv": conv_int8_fused,
+           "int8_conv raw entry": conv_int8_im2col}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def _pre_train(card: str, name: str, images):
+    """(b) ``name`` trains with the bench's recipe on the synthetic corpus's
+    first plane (bf16, crop 64, b32, the model's own optimizer): the f32
+    step card vs CPU on two samples at step K (DRCN's α about 0.5), then
+    the train path with its counts
+    zeroed just before and read just after (cuDNN convs only: no kernel of
+    the port may run): 3 single steps (VDSR prints its clip scale) and two
+    K-step dispatches (DRCN prints α at each), after which the loss on a
+    fixed probe batch, at the run's last schedule step, must have fallen
+    (each dispatch's mean loss is printed too: DRCN's Adam at 1e-4 moves
+    it less than the spread between batches), and a checkpoint that
+    restores exactly. Returns the trainer and state."""
+    import tempfile
+
+    from sr_torch.data.pipeline import PatchPipeline
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.checkpoint import Checkpointer, run_meta
+    from sr_torch.utils.config import SRConfig
+
+    k = PRE_K[name]
+    cfg = SRConfig(model_name=name, num_channels=1, scale_factor=4,
+                   crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH,
+                   dtype="bfloat16", num_epochs=1, steps_per_epoch=2 * k + 3)
+    pipe = PatchPipeline(images, crop_size=TRAIN_CROP, scale_factor=4,
+                         batch_size=TRAIN_BATCH, channels=1,
+                         pre_upsample=True)
+    batch = pipe(torch.Generator(device="cuda").manual_seed(9))
+    # mid-run, where DRCN's α < 1 sends gradient to the recursion weights
+    _step_card_vs_cpu(cfg, {key: v[:2] for key, v in batch.items()},
+                      tag="[10]", step=k)
+    tr = Trainer(cfg)
+    state = tr.init_state(1)
+    multi = tr.make_multi_step(pipe, k)
+    probe = pipe(torch.Generator(device="cuda").manual_seed(11))
+
+    def probe_loss() -> float:
+        state.model.train()  # DRCN's training output feeds its loss
+        with torch.no_grad():
+            return float(tr.loss_fn(state.model, probe, 2 * k + 3)[0])
+
+    before = probe_loss()
+    print(f"[10] {name} x4 train: {tr.num_params(state)} params, bf16, crop "
+          f"{TRAIN_CROP} b{TRAIN_BATCH}, {type(state.optimizer).__name__} "
+          f"{tr.cfg.effective_lr:g}, input 'bc' {tuple(batch['bc'].shape)}")
+
+    # ---- the train path: counts zeroed just before, read just after ----
+    fns = _zero_counts()
+    firsts = [tr.train_step(state, pipe(state.generator))[1]
+              for _ in range(3)]
+    if name == "VDSR":
+        print(f"[10] VDSR clip scale of steps 1-3 (θ/lr = "
+              f"{cfg.vdsr_clip_theta / tr.cfg.effective_lr:g} over the "
+              f"gradient norm, at most 1): "
+              f"{[round(float(m['clip_scale']), 6) for m in firsts]}")
+    losses, times = [], []
+    for _ in range(2):
+        alpha = tr.spec.schedule(cfg, state.step).get("alpha")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = multi(state)
+        end.record()
+        end.synchronize()
+        losses.append(float(m["loss"]))
+        times.append(start.elapsed_time(end))
+        extra = "" if alpha is None else f", alpha at its start {alpha:.4f}"
+        extra += ("" if "clip_scale" not in m
+                  else f", mean clip scale {float(m['clip_scale']):.4f}")
+        print(f"[10] {name} K={k} dispatch at step {state.step - k}: "
+              f"{times[-1]:.1f} ms ({k / times[-1] * 1e3:.1f} steps/s, one "
+              f"dispatch, not a marginal), mean loss {losses[-1]:.6f}"
+              f"{extra} | {card}")
+    launches = {n: fn.launches for n, fn in fns.items()}
+    check(all(v == 0 for v in launches.values()),
+          f"the {name} train path launched a port kernel: {launches}")
+    after = probe_loss()
+    print(f"[10] {name} probe-batch loss {before:.6f} before training, "
+          f"{after:.6f} after {state.step} steps")
+    check(after < before, f"the {name} loss did not fall")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix=f"{name.lower()}_ckpt_", dir=out_dir)
+    ckpt = Checkpointer(ckpt_dir, meta=run_meta(cfg))
+    ckpt.save(state)
+    restored = ckpt.restore(tr.init_state(99))
+    check(restored.step == state.step == 2 * k + 3 and all(
+        torch.equal(p, q) for p, q in zip(restored.model.parameters(),
+                                          state.model.parameters()))
+          and torch.equal(restored.generator.get_state(),
+                          state.generator.get_state()),
+          f"the {name} checkpoint did not restore the trained state")
+    shutil.rmtree(ckpt_dir)
+    return tr, state
+
+
+def _pre_serve(card: str, name: str, state, shapes: _Int8Shapes) -> None:
+    """(c) The trained params, saved in the JAX package's .npz format,
+    served through ``upscale`` on RGB images (the net on the ×4 bicubic
+    upscale of Y; one image in halo tiles) in bf16, f32, int8 static and
+    dynamic, and through one HTTP POST, the counts zeroed just before and
+    read just after (the int8 sites tallied by shape into ``shapes``);
+    then per-forward launches, f32 card vs CPU, tiled vs whole, a YCbCr
+    image's chroma and int8 against f32 interiors."""
+    from PIL import Image
+
+    from sr_torch.data.native import resize_bicubic_u8
+    from sr_torch.eval.tiling import RECEPTIVE_FIELD
+    from sr_torch.infer import upscale
+    from sr_torch.serve import SRService, serve_background
+    from sr_torch.utils.checkpoint import save_params
+    from sr_torch.utils.interop import to_jax_params
+    from sr_torch.utils.precision import no_tf32
+
+    path = str(ROOT / "build" / "chip_smoke" / f"{name}_x4_trained.npz")
+    save_params(path, to_jax_params(state.model))
+    rng = np.random.default_rng(10)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in PRE_IMAGES]
+
+    # ---- the serving path: counts zeroed just before, read just after --
+    fns = _zero_counts()
+    outs = {}
+    with shapes:
+        for dtype, quantize in ESPCN_SERVE:
+            for img in imgs:
+                t0 = time.perf_counter()
+                out = upscale(img, name, path, dtype=dtype,
+                              quantize=quantize, fused=True)
+                ms = (time.perf_counter() - t0) * 1e3
+                h, w = img.shape[:2]
+                check(out.shape == (4 * h, 4 * w, 3)
+                      and out.dtype == np.uint8,
+                      f"{name} upscale output {out.shape} {out.dtype}")
+                outs[dtype, quantize, img.shape] = out
+                print(f"[10] upscale {name} {h}x{w} RGB {dtype} int8 "
+                      f"{quantize}: {out.shape} uint8 in {ms:.1f} ms (host "
+                      "clock, first call loads/calibrates)")
+        service = SRService(model_name=name, params=path, scale_factor=4)
+        httpd, port = serve_background(service)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/upscale", body=_png(imgs[0]),
+                     headers={"Content-Type": "image/png"})
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        httpd.shutdown()
+        httpd.server_close()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    check(resp.status == 200, f"POST /upscale {name}: {resp.status}")
+    check(np.array_equal(np.asarray(Image.open(io.BytesIO(body))),
+                         outs["bfloat16", False, imgs[0].shape]),
+          f"the served {name} PNG differs from a direct upscale")
+    print(f"[10] {name} serving-path launches: {launches}")
+    check(launches["int8_conv"] > 0 and launches["depth_to_space"] == 0
+          and launches["fused_resblock"] == 0
+          and launches["int8_conv raw entry"] == 0,
+          f"the {name} serving path must run its int8 convs through the "
+          "fused int8 kernel and no shuffle or resblock")
+    ycc = rng.integers(0, 256, (13, 11, 3), dtype=np.uint8)
+    got = upscale(ycc, name, path, color_space="ycbcr", fused=True)
+    check(np.array_equal(got[..., 1:], resize_bicubic_u8(ycc, (52, 44))
+                         [..., 1:]),
+          f"the {name} YCbCr output's chroma is not the bicubic upscale's")
+
+    # ---- per-forward counts (the loaded functions are cached) ----
+    fns = _zero_counts()
+    for dtype, quantize in ESPCN_SERVE:
+        before = {n: fn.launches for n, fn in fns.items()}
+        upscale(imgs[0], name, path, dtype=dtype, quantize=quantize,
+                fused=True)
+        got = {n: fn.launches - before[n] for n, fn in fns.items()}
+        want = {"depth_to_space": 0, "fused_resblock": 0,
+                "int8_conv": PRE_PER_FWD[name] if quantize else 0,
+                "int8_conv raw entry": 0}
+        print(f"[10] one {name} {dtype} int8 {quantize} forward: {got}")
+        check(got == want, f"unexpected {name} launches per forward")
+
+    # ---- f32: card vs CPU (TF32 off) on the whole image; tiled vs whole
+    with no_tf32():
+        card_out = upscale(imgs[0], name, path, dtype="float32", fused=True)
+        whole = upscale(imgs[1], name, path, dtype="float32", fused=True,
+                        tile=None)
+    cpu_out = upscale(imgs[0], name, path, dtype="float32", fused=True,
+                      device="cpu")
+    d = np.abs(card_out.astype(np.int32) - cpu_out)
+    dt = np.abs(whole.astype(np.int32)
+                - outs["float32", False, imgs[1].shape])
+    print(f"[10] {name} f32 upscale {imgs[0].shape[:2]}, card vs CPU: max "
+          f"{d.max()} u8 levels, mean {d.mean():.5f} (tol 1); "
+          f"{imgs[1].shape[:2]} in halo tiles vs whole on the card: max "
+          f"{dt.max()} (tol 1)")
+    check(d.max() <= 1 and dt.max() <= 1,
+          f"the {name} f32 upscale differs card vs CPU or tiled vs whole")
+
+    # ---- int8 against f32, interiors (the receptive field, HR px) ----
+    m = RECEPTIVE_FIELD[name.lower()]
+    for quantize in ("static", "dynamic"):
+        for img in imgs:
+            a = outs["bfloat16", quantize, img.shape].astype(np.int32)
+            b = outs["float32", False, img.shape].astype(np.int32)
+            d = np.abs(a - b)[m:-m, m:-m]
+            print(f"[10] {name} int8 {quantize} vs f32 interior "
+                  f"{img.shape[:2]}: max {d.max()} u8 levels, mean "
+                  f"{d.mean():.4f} (tol mean 4)")
+            check(d.mean() <= 4, f"{name} int8 interior too far from f32")
+
+
+def _pre_eval(card: str, name: str, tr, state, sets) -> None:
+    """(d) The trained model through ``evaluate(pre_upsample=True)`` on the
+    synthetic set and 8 procedural 384² images (YCbCr), host and device
+    metrics, the counts zeroed just before and read just after (no kernel
+    of the port runs in these models' float forward); device metrics
+    within 1e-4 dB and 1e-5 SSIM of the host's; images/s by CUDA
+    events."""
+    predict = functools.partial(tr.make_predict_fn(), state.model)
+    kw = dict(scale_factor=4, channels=1, color_space="ycbcr",
+              pre_upsample=True)
+    for _, ds in sets:  # warm-up: cuDNN's plans at each shape
+        _timed_eval(predict, ds, on_device_metrics=True, **kw)
+    fns = _zero_counts()
+    runs = {(set_name, on_dev): _timed_eval(predict, ds,
+                                            on_device_metrics=on_dev, **kw)
+            for set_name, ds in sets for on_dev in (False, True)}
+    launches = {n: fn.launches for n, fn in fns.items()}
+    check(all(v == 0 for v in launches.values()),
+          f"the {name} eval path launched a port kernel: {launches}")
+    for set_name, _ in sets:
+        host, dev = runs[set_name, False][0], runs[set_name, True][0]
+        _check_eval(host, f"{name} {set_name}")
+        _check_eval(dev, f"{name} {set_name}")
+        pairs = list(zip(host.images, dev.images))
+        dp = max(abs(a.psnr_sr - b.psnr_sr) for a, b in pairs)
+        dss = max(abs(a.ssim_sr - b.ssim_sr) for a, b in pairs)
+        print(f"[10] {name} eval {set_name} (Y): host vs device metrics, "
+              f"PSNR max diff {dp:.3g} dB (tol 1e-4), SSIM {dss:.3g} (tol "
+              f"1e-5); model {host.avg_psnr_sr:.4f} dB, bicubic "
+              f"{host.avg_psnr_bicubic:.4f} dB")
+        check(dp <= 1e-4 and dss <= 1e-5,
+              f"{name} {set_name}: device metrics differ from the host's")
+        for on_dev in (False, True):
+            res, ms, pred_ms, _ = runs[set_name, on_dev]
+            n = len(res.images)
+            print(f"[10] {name} eval {set_name}, "
+                  f"{'device' if on_dev else 'host'} metrics: "
+                  f"{n / ms * 1e3:.2f} images/s, {ms / n:.3f} ms/image (CUDA "
+                  f"events), predict {pred_ms / n:.3f} ms/image "
+                  f"({100 * pred_ms / ms:.1f}% of the span) | {card}")
+
+
+def phase_preupsample(card: str) -> list[dict]:
+    """Phase 10: SRCNN, VDSR and DRCN ×4 on Y at full width (SRCNN 9-5-5
+    64/32, VDSR 20 × 64 without biases, DRCN 64 filters × 16 recursions).
+    (a) the fused int8 entry at every int8 site shape ``upscale`` gives
+    each net for (c)'s two images, exact against its plain version and
+    timed (library time: cuDNN's bf16 conv at the shape); then per model
+    (b) training, (c) serving and (d) eval through the port's entry
+    points, each path with its own zeroed counts. Returns the kernel rows,
+    each with the launches of its shape on its model's serving path."""
+    from sr_torch.data.datasets import SyntheticDataset, get_test_set
+    from sr_torch.data.procedural import ProceduralDataset
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    for name, sites in PRE_INT8.items():
+        for h, w in PRE_IMAGES:
+            shape = _pre_forward_shape(name, (h, w))
+            for site, c, n, k in sites:
+                row = _int8_row(card, gen, f"{name} {site}", (*shape, c), n,
+                                k, tag="[10]")
+                row.update(path=f"{name} int8 serving, {site}, {h}x{w} "
+                                "image", model=name,
+                           library_ms=row["cudnn_bf16_ms"],
+                           library="cuDNN bf16 conv")
+                rows.append(row)
+        torch.cuda.empty_cache()
+    print(f"[10] kernel rows: {time.perf_counter() - t0:.1f} s")
+    ds = SyntheticDataset(num_images=32, size=(160, 160), channels=3,
+                          seed=100)
+    images = [ds[i][..., :1] for i in range(len(ds))]
+    sets = (("synthetic",
+             get_test_set(str(ROOT / "build" / "chip_smoke"), "synthetic")),
+            ("procedural", ProceduralDataset(
+                num_images=8, size=(384, 384), split="test",
+                color_space="ycbcr")))
+    for _, test_set in sets:
+        for i in range(len(test_set)):
+            test_set[i]
+    shapes = {}
+    for name in PRE_INT8:
+        t1 = time.perf_counter()
+        tr, state = _pre_train(card, name, images)
+        shapes[name] = _Int8Shapes()
+        _pre_serve(card, name, state, shapes[name])
+        _pre_eval(card, name, tr, state, sets)
+        del tr, state
+        torch.cuda.empty_cache()
+        print(f"[10] {name} seconds {time.perf_counter() - t1:.1f}")
+    for row in rows:
+        row["launches"] = shapes[row.pop("model")].counts[tuple(row["shape"])]
+    check(all(row["launches"] > 0 for row in rows),
+          "a pre-upsample kernel row's shape was not launched on its path: "
+          f"{[(r['name'], r['shape'], r['launches']) for r in rows]}")
+    print(f"[10] phase seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
 BENCH_KEYS = ("value", "vs_baseline", "bf16_exact_mps", "bf16_fused_mps",
               "bf16_fused_vs_baseline", "bf16_best_mps")
 
@@ -2347,6 +2758,8 @@ def main() -> int:
     del tr, state
     entries += phase_espcn(card)
     phase_bench(card, entries)
+    torch.cuda.empty_cache()
+    entries += phase_preupsample(card)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

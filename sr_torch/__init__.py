@@ -15,5 +15,6 @@ checkpoints with exact resume). Slice 7 evaluates it:
 ``sr_torch.eval.runner.evaluate`` on ``sr_torch.data.datasets.get_test_set``
 (Pillow-exact degradation, Y-channel PSNR/SSIM on the host or the card).
 Slice 8 trains, serves and evaluates ESPCN ×4 on Y, and ports ``bench.py``
-as ``python -m sr_torch.bench``.
+as ``python -m sr_torch.bench``. Slice 9 trains, serves (float and int8)
+and evaluates the pre-upsample family on Y: SRCNN, VDSR and DRCN ×4.
 """

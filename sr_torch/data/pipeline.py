@@ -14,7 +14,14 @@ bank's device, with no host work and no host sync:
   tensors, not a Python loop), the random-scale resize as a batched pair
   of products with the draw's zero-padded Pillow-parity matrix (width pass,
   clamp to [0, 255], height pass, clamp), rot90 then flip, the bicubic LR
-  degradation, and division by 255 in the pipeline's dtype.
+  degradation, and division by 255 in the pipeline's dtype. A
+  pre-upsample pipeline adds ``bc``, the LR bicubic-upscaled back to the
+  crop (the input of SRCNN, VDSR and DRCN). With ``scale_factors`` each
+  sample draws its own factor and the batch holds ``hr`` and ``bc`` only
+  (``bc`` keeps one shape across factors); every factor's ``bc`` is
+  computed for the whole batch and each sample picks its own, as the JAX
+  sampler's ``lax.switch`` under ``vmap`` does. Pillow clamps after the
+  width pass, so the down- and up-resize stay two separate resizes.
 
 The JAX sampler draws with ``jax.random`` and the port with a
 ``torch.Generator``: the numbers differ, the distributions do not. The tests
@@ -41,7 +48,6 @@ from sr_torch.kernels.bicubic import resize2d, resize_matrix
 from sr_torch.utils.device import resolve_device
 
 RANDOM_SCALES = (1.0, 0.9, 0.8, 0.7, 0.6, 0.5)
-_LATER = "lands in a later port slice (pre-upsample models)"
 
 
 def stack_corpus(images: list[np.ndarray], channels: int) -> np.ndarray:
@@ -102,9 +108,11 @@ class PatchPipeline:
     Args mirror the JAX pipeline's: ``crop_size`` (HR patch),
     ``scale_factor``, ``batch_size``, ``channels`` (1 = Y, 3 = RGB),
     ``augment`` (rot/flip), ``random_scale`` and ``random_scale_mode``.
-    ``dtype`` is the batch's dtype; ``device`` holds the bank and makes the
-    batches (the card unless the caller asks for the CPU). ``pre_upsample``
-    and ``scale_factors`` raise until their models land.
+    ``pre_upsample`` adds the bicubic-upscaled LR ``bc``; ``scale_factors``
+    (which needs it) draws each sample's factor from the tuple and gives
+    ``{"hr", "bc"}``. ``dtype`` is the batch's dtype; ``device`` holds the
+    bank and makes the batches (the card unless the caller asks for the
+    CPU).
     """
 
     images: list[np.ndarray] | np.ndarray
@@ -122,9 +130,6 @@ class PatchPipeline:
     _bank: torch.Tensor = field(init=False, repr=False)
 
     def __post_init__(self):
-        if self.pre_upsample or self.scale_factors:
-            raise NotImplementedError(
-                f"pre_upsample / scale_factors {_LATER}")
         if isinstance(self.images, np.ndarray):
             bank = self.images
         else:
@@ -151,6 +156,15 @@ class PatchPipeline:
             raise ValueError(
                 f"random_scale_mode must be 'item', 'batch' or 'matrix', "
                 f"got {self.random_scale_mode!r}")
+        if self.scale_factors:
+            if not self.pre_upsample:
+                raise ValueError(
+                    "multi-scale batches need pre_upsample=True (only the "
+                    "bicubic-upscaled input has a static shape across "
+                    "scales)")
+            for r in self.scale_factors:
+                if crop % r:
+                    raise ValueError(f"crop_size must divide by scale {r}")
         self.device = resolve_device(self.device)
         self._shape = (n, h, w)
         scales = RANDOM_SCALES if self.random_scale else (1.0,)
@@ -173,7 +187,8 @@ class PatchPipeline:
         """The batch's random numbers, (B,) int64 tensors on the bank's
         device: ``index``, ``scale`` (into :data:`RANDOM_SCALES`, or 0
         without random scale), ``top``, ``left``, ``rot`` (0-3) and
-        ``flip`` (0/1; both 0 without augment)."""
+        ``flip`` (0/1; both 0 without augment), and with ``scale_factors``
+        ``factor`` (into that tuple)."""
         n, h, w = self._shape
         bsz, dev = self.batch_size, self._bank.device
 
@@ -196,14 +211,18 @@ class PatchPipeline:
         rot, flip = ints(4), ints(2)
         if not self.augment:
             rot, flip = torch.zeros_like(rot), torch.zeros_like(flip)
-        return {"index": index, "scale": scale, "top": top, "left": left,
-                "rot": rot, "flip": flip}
+        out = {"index": index, "scale": scale, "top": top, "left": left,
+               "rot": rot, "flip": flip}
+        if self.scale_factors:
+            out["factor"] = ints(len(self.scale_factors))
+        return out
 
     def transform(self, bank: torch.Tensor, draws: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:
-        """{"hr": (B, crop, crop, C), "lr": (B, crop/r, crop/r, C)} in [0, 1]
-        and the pipeline's dtype, from ``bank`` (N, H, W, C) uint8 and the
-        draws of :meth:`draw` (or JAX's, in the tests)."""
+        """{"hr": (B, crop, crop, C), "lr": (B, crop/r, crop/r, C)[, "bc":
+        (B, crop, crop, C)]} in [0, 1] and the pipeline's dtype, from
+        ``bank`` (N, H, W, C) uint8 and the draws of :meth:`draw` (or
+        JAX's, in the tests); with ``scale_factors`` {"hr", "bc"}."""
         _, h, w = self._shape
         crop = self.crop_size
         ar = torch.arange(self._patch, device=bank.device)
@@ -220,13 +239,24 @@ class PatchPipeline:
             hr = torch.einsum("boh,bhwc->bowc", m, t).clamp(0.0, 255.0)
         if self.augment:
             hr = augment(hr, draws["rot"], draws["flip"])
-        lr_size = crop // self.scale_factor
-        lr = resize2d(hr, (lr_size, lr_size))
-        return {"hr": (hr / 255.0).to(self.dtype),
-                "lr": (lr / 255.0).to(self.dtype)}
+        if self.scale_factors:
+            # every factor's degradation for the whole batch, then each
+            # sample's own (the JAX sampler's switch under vmap)
+            bcs = torch.stack([
+                resize2d(resize2d(hr, (crop // r, crop // r)), (crop, crop))
+                for r in self.scale_factors])
+            bc = bcs[draws["factor"], torch.arange(hr.shape[0],
+                                                   device=hr.device)]
+            out = {"hr": hr, "bc": bc}
+        else:
+            lr_size = crop // self.scale_factor
+            out = {"hr": hr, "lr": resize2d(hr, (lr_size, lr_size))}
+            if self.pre_upsample:
+                out["bc"] = resize2d(out["lr"], (crop, crop))
+        return {k: (v / 255.0).to(self.dtype) for k, v in out.items()}
 
     def __call__(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
-        """One (lr, hr) batch dict, NHWC in [0, 1]."""
+        """One (lr, hr[, bc]) batch dict, NHWC in [0, 1]."""
         return self.transform(self._bank, self.draw(generator))
 
     @property
@@ -246,22 +276,33 @@ class PatchPipeline:
 def build_patch_pipeline(cfg, spec, images: list[np.ndarray],
                          device: str | torch.device = "cuda") -> PatchPipeline:
     """Corpus-aware construction: reduce crop_size to fit the corpus (warn),
-    turn random scale off when the 0.5× patch would not fit, and drop
-    multi-scale factors for a model that is not pre-upsample (warn)."""
+    turn random scale off when the 0.5× patch would not fit, drop
+    multi-scale factors for a model that is not pre-upsample (warn), and
+    reduce the crop to a multiple of every factor in play (warn)."""
     min_dim = min(min(im.shape[0], im.shape[1]) for im in images)
     crop = cfg.crop_size
     if crop > min_dim:
         crop = (min_dim // cfg.scale_factor) * cfg.scale_factor
         print(f"[warn] crop_size reduced to {crop} for a {min_dim}px corpus")
+    random_scale = crop * 2 <= min_dim
     scale_factors = tuple(cfg.scale_factors or ())
     if scale_factors and not spec.pre_upsample:
         print(f"[warn] {cfg.model_name} is not pre-upsample; "
               "--multi_scale ignored")
         scale_factors = ()
+    if scale_factors:
+        # divisible by every multi-scale factor and by the config's own
+        # scale_factor, which the sampler checks too
+        lcm = int(np.lcm.reduce(np.array(scale_factors
+                                         + (cfg.scale_factor,))))
+        if crop % lcm:
+            crop = (crop // lcm) * lcm
+            print(f"[warn] crop_size reduced to {crop} (divisible by "
+                  f"all of {scale_factors} and x{cfg.scale_factor})")
     return PatchPipeline(
         images, crop_size=crop, scale_factor=cfg.scale_factor,
         batch_size=cfg.batch_size, channels=cfg.num_channels,
-        pre_upsample=spec.pre_upsample, random_scale=crop * 2 <= min_dim,
+        pre_upsample=spec.pre_upsample, random_scale=random_scale,
         scale_factors=scale_factors,
         random_scale_mode=cfg.random_scale_mode, device=device,
     )

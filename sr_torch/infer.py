@@ -1,20 +1,23 @@
 """One-call inference API: upscale an image with a trained model.
 
-Port of ``sr/infer.py`` for models that take the raw LR image (EDSR on RGB,
-ESPCN on Y), in float or int8: it loads exported params (the JAX package's
-``.npz`` format), routes big images through halo-tiled inference,
-optionally uses the fused affine tail, runs every conv as int8
+Port of ``sr/infer.py``, in float or int8: it loads exported params (the
+JAX package's ``.npz`` format), picks the input convention (the raw LR
+image for EDSR and ESPCN; for the pre-upsample models SRCNN, VDSR and DRCN
+the image bicubic-upscaled on the host, ``resize_bicubic_u8``, with a net
+whose output has its input's size), routes big images through halo-tiled
+inference, optionally uses the fused affine tail, runs every conv as int8
 (``quantize``), and can quantize the output to uint8 on the device. A
 1-channel model super-resolves the luma of an RGB (or YCbCr) image and
-merges bicubic-upscaled chroma back.
+merges bicubic-upscaled chroma back; one full-image bicubic upscale serves
+a pre-upsample model's input and the chroma.
 
     from sr_torch.infer import upscale
     sr_img = upscale(img_u8, "EDSR", "results/EDSR_x4/EDSR_params.npz",
                      scale_factor=4, quantize="static", fused=True)
 
 Every entry point runs on ``device="cuda"`` unless the caller asks for the
-CPU. Pre-upsample models (bicubic input: SRCNN, VDSR), ``self_ensemble`` and
-``net_scale`` land in later port slices and raise ``NotImplementedError``.
+CPU. ``self_ensemble`` and ``net_scale`` land in later port slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ def make_serving_predict(model, fused: bool, quantize: bool | str = False,
                          output_u8: bool = False, calib_batches=None):
     """The serving-variant policy (``sr/infer.py:make_serving_predict``):
     ``fused`` collapses the affine tail of a model that has one (EDSR);
-    a model without a ``tail`` (ESPCN), or ``fused=False``, runs the exact
-    graph. ``quantize`` runs every conv as int8: ``True``/``"dynamic"``
+    a model without a ``tail`` (ESPCN, SRCNN, VDSR, DRCN), or
+    ``fused=False``, runs the exact graph: ``fused`` is a hint. ``quantize`` runs every conv as int8: ``True``/``"dynamic"``
     with per-sample activation scales on the exact graph; ``"static"``
     with scales calibrated on the first batch (or ``calib_batches``),
     composed with the collapsed tail when ``fused`` and the model has one.
@@ -79,15 +82,11 @@ def _load(model_name: str, params_path: str, params_mtime: float,
           scale_factor: int, num_channels: int | None, dtype: str,
           fused: bool, quantize: bool | str, output_u8: bool,
           calib_headroom: float, device: torch.device):
-    """``(channels, predict)`` for the model at ``params_path``."""
+    """``(spec, channels, predict)`` for the model at ``params_path``."""
     # params_mtime keys the cache so a re-exported file at the same path
     # is picked up instead of serving stale weights
     del params_mtime
     spec = get_spec(model_name)
-    if spec.pre_upsample:
-        raise NotImplementedError(
-            f"{model_name} takes a bicubic-upscaled input (pre-upsample "
-            f"models) {_LATER}")
     channels = num_channels or spec.default_channels
     cfg = SRConfig(model_name=model_name, scale_factor=scale_factor,
                    num_channels=channels, dtype=dtype)
@@ -99,9 +98,9 @@ def _load(model_name: str, params_path: str, params_mtime: float,
     model = model.to(device).eval()
     # a static predict keeps its calibration in the cached function, so
     # later requests reuse the first request's scales, as in sr.infer
-    return channels, make_serving_predict(model, fused, quantize,
-                                          calib_headroom=calib_headroom,
-                                          output_u8=output_u8)
+    return spec, channels, make_serving_predict(
+        model, fused, quantize, calib_headroom=calib_headroom,
+        output_u8=output_u8)
 
 
 def _to_u8(y) -> np.ndarray:
@@ -148,7 +147,7 @@ def upscale(
     if self_ensemble or net_scale:
         raise NotImplementedError(f"self_ensemble / net_scale {_LATER}")
     device = resolve_device(device)
-    channels, fn = _load(model_name, params_path,
+    spec, channels, fn = _load(model_name, params_path,
                          os.path.getmtime(params_path), scale_factor,
                          num_channels, dtype, fused, quantize, output_u8,
                          calib_headroom, device)
@@ -162,15 +161,22 @@ def upscale(
     if to_rgb_out:
         img = _to_u8(rgb_to_ycbcr(img.astype(np.float32)).numpy())
     chroma = channels == 1 and img.shape[-1] == 3
+    # one full-image bicubic upscale serves a pre-upsample model's input
+    # and the chroma merge
+    bc_full = (resize_bicubic_u8(img, (h * r, w * r))
+               if spec.pre_upsample or chroma else None)
+    # the network's output/input size ratio: 1 for a pre-upsample net
+    model_in, out_factor = (bc_full, 1) if spec.pre_upsample else (img, r)
     if channels == 1:
-        net_in = img[..., :1]
+        net_in = model_in[..., :1]
     else:
-        net_in = img if img.shape[-1] == 3 else np.repeat(img, 3, axis=2)
+        net_in = (model_in if model_in.shape[-1] == 3
+                  else np.repeat(model_in, 3, axis=2))
     x = torch.from_numpy(net_in.astype(np.float32)[None] / 255.0).to(device)
     halo = RECEPTIVE_FIELD.get(model_name.lower(), 48)
     with torch.inference_mode():
         if tile is not None and max(x.shape[1], x.shape[2]) > tile:
-            out = tiled_predict(fn, x, r, tile=tile, halo=halo)
+            out = tiled_predict(fn, x, out_factor, tile=tile, halo=halo)
         else:
             out = fn(x)
         out = out[0].cpu()
@@ -179,8 +185,7 @@ def upscale(
     else:
         sr_u8 = _to_u8(out.float().numpy() * 255.0)
     if chroma:
-        # the model's luma with one full-image bicubic upscale's chroma
-        bc_full = resize_bicubic_u8(img, (h * r, w * r))
+        # the model's luma with the full-image bicubic upscale's chroma
         sr_u8 = np.concatenate([sr_u8[..., :1], bc_full[..., 1:]], axis=-1)
     if to_rgb_out:
         sr_u8 = _to_u8(ycbcr_to_rgb(sr_u8.astype(np.float32)).numpy())

@@ -17,9 +17,10 @@ the port's own numpy copy. Two resamplers use it:
     passes on the host in numpy, bit for bit (the eval degradation, so a
     reported PSNR is against exactly the reference's LR).
 
-The pre-upsample helpers (``img_interp``, ``resize2d_unit``) come with the
-pre-upsample models. No Pallas kernel lives here: the JAX package leaves
-these products to XLA too.
+:func:`resize2d_unit` and :func:`img_interp` are ``resize2d`` for
+[0, 1]-normalized tensors: the bicubic upscale that feeds the pre-upsample
+models (SRCNN, VDSR, DRCN). No Pallas kernel lives here: the JAX package
+leaves these products to XLA too.
 """
 
 from __future__ import annotations
@@ -158,6 +159,21 @@ def resize2d(
     if squeeze[0]:
         out = out[..., 0]
     return out
+
+
+def resize2d_unit(x: torch.Tensor, out_hw: tuple[int, int],
+                  filter: str = "bicubic") -> torch.Tensor:
+    """:func:`resize2d` for [0, 1]-normalized tensors: no intermediate
+    clamp, the result clamped to [0, 1]."""
+    return resize2d(x, out_hw, filter, clip=False).clamp(0.0, 1.0)
+
+
+def img_interp(x: torch.Tensor, scale_factor: int,
+               filter: str = "bicubic") -> torch.Tensor:
+    """Bicubic-upscale an (H, W), (H, W, C) or NHWC image in [0, 1] by
+    ``scale_factor``: the pre-upsampling step of SRCNN, VDSR and DRCN."""
+    h, w = (x.shape[-3], x.shape[-2]) if x.dim() >= 3 else x.shape
+    return resize2d_unit(x, (h * scale_factor, w * scale_factor), filter)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""NN building blocks for EDSR: ConvBlock, ResnetBlock, PSBlock.
+"""NN building blocks: ConvBlock, ResnetBlock, PSBlock.
 
-Port of ``sr/nn/blocks.py`` for the part of its menu that EDSR uses: the
-``relu`` and ``None`` activations and no norm. Other activations and norms
-raise until their port slice lands.
+Port of ``sr/nn/blocks.py`` for the part of its menu that the port's
+models use: the ``relu`` and ``None`` activations, no norm, the kernel
+initializers of ``sr_torch/nn/init.py`` (``kernel_init``) and convs
+without bias (``use_bias=False``). Other activations and norms raise until
+their port slice lands.
 
 Blocks take and return NCHW-logical tensors in ``torch.channels_last``
 memory, which lays them out as NHWC, so ``x.permute(0, 2, 3, 1)`` hands the
@@ -40,7 +42,7 @@ from sr_torch.kernels.depth_to_space import depth_to_space
 from sr_torch.kernels.fused_resblock import (
     fused_resblock, pack_wgmma_weights, pack_weights)
 from sr_torch.nn import intercept
-from sr_torch.nn.init import lecun_normal_
+from sr_torch.nn.init import get_kernel_init
 
 _LATER = "lands in a later port slice"
 
@@ -53,12 +55,14 @@ def _check_menu(act, norm) -> None:
 
 
 def _conv(in_features: int, features: int, kernel_size: int, stride: int,
-          use_bias: bool, generator: torch.Generator | None) -> nn.Conv2d:
-    """A conv with flax's default init (lecun_normal kernel, zero bias)."""
+          use_bias: bool, generator: torch.Generator | None,
+          kernel_init: str | None = None) -> nn.Conv2d:
+    """A conv with the kernel init called ``kernel_init`` (None: flax's
+    default, lecun_normal) and a zero bias."""
     conv = nn.utils.skip_init(nn.Conv2d, in_features, features, kernel_size,
                               stride=stride, padding=kernel_size // 2,
                               bias=use_bias)
-    lecun_normal_(conv.weight, generator)
+    get_kernel_init(kernel_init)(conv.weight, generator)
     if use_bias:
         with torch.no_grad():
             conv.bias.zero_()
@@ -98,6 +102,7 @@ class ConvBlock(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, act: str | None = "relu",
                  norm: str | None = None, use_bias: bool = True,
+                 kernel_init: str | None = None,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -105,7 +110,7 @@ class ConvBlock(nn.Module):
         self.act = act
         self.dtype = dtype
         self.Conv_0 = _conv(in_features, features, kernel_size, stride,
-                            use_bias, generator)
+                            use_bias, generator, kernel_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _apply_conv(self.Conv_0, x, self.dtype)

@@ -17,7 +17,10 @@ conv is a site.
 
 :func:`site_keys` names each conv by its flax module path (``head/Conv_0``,
 ``blocks_3/Conv_1``, ``upsample_0/Conv_0``), the keys of the JAX package's
-calibrated scales.
+calibrated scales. :func:`recurrent_convs` finds the convs of a block that
+a model applies in a loop with shared weights (DRCN's recursion, marked
+``recurrent``): the JAX package's calibration skips the sites inside its
+``nn.scan`` by trace identity, and the port's skips these.
 """
 
 from __future__ import annotations
@@ -57,3 +60,10 @@ def site_keys(model: nn.Module) -> dict[nn.Conv2d, str]:
     return {m: "/".join(flax_path(name))
             for name, m in model.named_modules()
             if isinstance(m, nn.Conv2d)}
+
+
+def recurrent_convs(model: nn.Module) -> set[nn.Conv2d]:
+    """Every ``nn.Conv2d`` inside a submodule whose ``recurrent`` attribute
+    is true."""
+    return {c for m in model.modules() if getattr(m, "recurrent", False)
+            for c in m.modules() if isinstance(c, nn.Conv2d)}

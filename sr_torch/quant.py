@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from sr_torch.kernels.int8_conv import conv_int8_fused, pack_weights
-from sr_torch.nn.intercept import intercept_convs, site_keys
+from sr_torch.nn.intercept import intercept_convs, recurrent_convs, site_keys
 
 _EPS = 1e-12
 _LATER = "lands in a later port slice"
@@ -210,11 +210,16 @@ def calibrate_scales(model: nn.Module, x: torch.Tensor,
     input amax; returns ``{flax path: scale}`` for the static int8 path.
     A site visited twice keeps the max. ``headroom`` multiplies every
     scale. ``per_channel`` (default): a per-input-channel ``(C,)`` float32
-    vector, else one float."""
+    vector, else one float. The convs of a recurrent block (DRCN's
+    recursion) are not recorded, as the JAX package's calibration cannot
+    see into its scan: they keep dynamic per-sample scales."""
     keys = site_keys(model)
+    skip = recurrent_convs(model)
     captured: dict[str, torch.Tensor] = {}
 
     def record(conv, inp):
+        if conv in skip:
+            return None
         a32 = inp.detach().to(torch.float32).abs()
         amax = a32.amax(dim=(0, 2, 3)) if per_channel else a32.amax()
         k = keys[conv]

@@ -12,13 +12,15 @@ Endpoints:
   POST /upscale          -> request body: PNG/JPEG bytes;
                             response: image/png of the upscaled image
 
-A 1-channel model (ESPCN) super-resolves the luma of the decoded RGB
-image and returns RGB, as ``upscale`` does.
+A 1-channel model (ESPCN, SRCNN, VDSR, DRCN) super-resolves the luma of
+the decoded RGB image and returns RGB, as ``upscale`` does; a pre-upsample
+model (SRCNN, VDSR, DRCN) takes the image bicubic-upscaled on the host.
 
 Usage:
   python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --port 8000
   python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --quantize static
   python -m sr_torch.serve --model_name ESPCN --params ESPCN_params.npz
+  python -m sr_torch.serve --model_name VDSR --params VDSR_params.npz --quantize dynamic
 """
 
 from __future__ import annotations

@@ -1,12 +1,18 @@
 """Optimizer recipes: a torch optimizer with a per-step learning rate.
 
-Port of the part of ``sr/train/optim.py`` that EDSR's recipe uses. An optax
-chain carries its schedule inside; here a :class:`Recipe` pairs a factory of
-a ``torch.optim`` optimizer with the schedule and sets the learning rate
-before each update. optax evaluates the schedule at the count of updates
-made *before* the current one, so the first ``halve_steps`` updates of
-:func:`adam_with_step_halving` run at the base rate; :meth:`Recipe.step`
-takes that count. VDSR's SGD with adjustable clipping comes with VDSR.
+Port of ``sr/train/optim.py``. An optax chain carries its schedule inside;
+here a :class:`Recipe` pairs a factory of a ``torch.optim`` optimizer with
+the schedule and sets the learning rate before each update. optax evaluates
+the schedule at the count of updates made *before* the current one, so the
+first ``halve_steps`` updates of :func:`adam_with_step_halving` run at the
+base rate; :meth:`Recipe.step` takes that count. A recipe may also clip the
+gradients first (VDSR's :func:`adjustable_grad_clip`), reading the same
+count.
+
+L2 weight decay added to the gradient before the update
+(``optax.add_decayed_weights`` chained before ``adam``/``sgd``, DRCN and
+VDSR) is the ``weight_decay`` of ``torch.optim.Adam`` and ``SGD``, which add
+``wd · p`` to the gradient before the moments, not decoupled AdamW decay.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -33,33 +40,82 @@ def step_decay_schedule(base_lr: float, steps_per_epoch: int,
     return lambda count: base_lr * factor ** (count // boundary)
 
 
+#: ``(grads, count) -> scale``: scales the gradients in place before the
+#: update and returns the factor, a device scalar
+Clip = Callable[[list[torch.Tensor], int], torch.Tensor]
+
+
 @dataclass(frozen=True)
 class Recipe:
-    """An optimizer factory ``(params, lr) -> torch.optim.Optimizer`` and
-    its per-step schedule."""
+    """An optimizer factory ``(params, lr) -> torch.optim.Optimizer``, its
+    per-step schedule and an optional gradient clip."""
 
     build: Callable[[Iterable[torch.nn.Parameter], float],
                     torch.optim.Optimizer]
     schedule: Schedule
+    clip: Clip | None = None
 
     def init(self, params: Iterable[torch.nn.Parameter]
              ) -> torch.optim.Optimizer:
         return self.build(params, self.schedule(0))
 
-    def step(self, optimizer: torch.optim.Optimizer, count: int) -> None:
-        """Apply the gradients: one update at ``schedule(count)``, where
-        ``count`` is the number of updates made before this one."""
+    def step(self, optimizer: torch.optim.Optimizer, count: int
+             ) -> torch.Tensor | None:
+        """Apply the gradients: the clip at ``count``, then one update at
+        ``schedule(count)``, where ``count`` is the number of updates made
+        before this one. Returns the clip's scale (None without a clip)."""
+        scale = None
+        if self.clip is not None:
+            scale = self.clip([p.grad for group in optimizer.param_groups
+                               for p in group["params"]
+                               if p.grad is not None], count)
         lr = self.schedule(count)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
+        return scale
 
 
-def adam(lr: float | Schedule, b1: float = 0.9, b2: float = 0.999) -> Recipe:
-    """optax.adam: eps 1e-8 outside the square root, bias-corrected."""
+def adam(lr: float | Schedule, b1: float = 0.9, b2: float = 0.999,
+         weight_decay: float = 0.0) -> Recipe:
+    """optax.adam: eps 1e-8 outside the square root, bias-corrected;
+    ``weight_decay`` chains ``optax.add_decayed_weights`` before it."""
     schedule = lr if callable(lr) else constant_schedule(lr)
     return Recipe(lambda params, lr0: torch.optim.Adam(
-        params, lr=lr0, betas=(b1, b2), eps=1e-8), schedule)
+        params, lr=lr0, betas=(b1, b2), eps=1e-8,
+        weight_decay=weight_decay), schedule)
+
+
+def adjustable_grad_clip(theta: float, schedule: Schedule) -> Clip:
+    """VDSR's adjustable gradient clipping (Kim et al., CVPR'16 §3.4): the
+    global norm of all gradients held to θ / lr(count), the gradients
+    multiplied by ``min(1, lim / max(norm, 1e-12))`` as optax computes it
+    (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``
+    instead). Everything stays on the gradients' device: no host sync."""
+
+    def clip(grads: list[torch.Tensor], count: int) -> torch.Tensor:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        lim = torch.full_like(norm, float(np.float32(theta)
+                                          / np.float32(schedule(count))))
+        scale = torch.clamp_max(lim / torch.clamp_min(norm, 1e-12), 1.0)
+        torch._foreach_mul_(grads, scale)
+        return scale
+
+    return clip
+
+
+def vdsr_sgd(base_lr: float, steps_per_epoch: int, decay_epochs: int = 20,
+             factor: float = 0.1, momentum: float = 0.9,
+             weight_decay: float = 1e-4, clip_theta: float = 0.4) -> Recipe:
+    """VDSR's recipe: the adjustable clip, then L2 weight decay, then SGD
+    with momentum (optax's trace: ``t = g + momentum · t``, ``p -= lr · t``)
+    at lr·factor^(epoch // decay_epochs)."""
+    sched = step_decay_schedule(base_lr, steps_per_epoch, decay_epochs,
+                                factor)
+    return Recipe(lambda params, lr0: torch.optim.SGD(
+        params, lr=lr0, momentum=momentum, weight_decay=weight_decay),
+        sched, clip=adjustable_grad_clip(clip_theta, sched))
 
 
 def adam_with_step_halving(base_lr: float, halve_steps: int) -> Recipe:

@@ -15,8 +15,9 @@ the host runs ahead and reads the averaged metrics once per dispatch.
 
 Training runs the convs through cuDNN and the pixel shuffle through its
 kernel (with the plain backward of ``sr_torch/kernels/depth_to_space.py``);
-``predict`` runs without grad, so EDSR's body takes the fused resblock
-kernel. Entry points run on ``device="cuda"`` unless the caller asks for
+``predict`` runs without grad in eval mode, so EDSR's body takes the fused
+resblock kernel and DRCN returns its ensemble only. A recipe's gradient
+clip (VDSR) reports its scale as the ``clip_scale`` metric. Entry points run on ``device="cuda"`` unless the caller asks for
 the CPU. Multi-GPU data parallelism (``mesh_shape``) lands with Queue A 10.
 """
 
@@ -105,8 +106,11 @@ class Trainer:
     def loss_fn(self, model, batch: dict, step: int
                 ) -> tuple[torch.Tensor, dict]:
         """The differentiable loss of ``model`` on ``batch`` at ``step``:
-        ``(loss, metrics)``. In a pre-shuffle mode the output stays in
-        pre-shuffle space and ``hr`` moves there instead."""
+        ``(loss, metrics)``. The model reads the spec's input (``bc`` for a
+        pre-upsample model) and its output, a tuple for DRCN in training
+        mode, goes to the spec's loss with the schedule context at
+        ``step``. In a pre-shuffle mode the output stays in pre-shuffle
+        space and ``hr`` moves there instead."""
         x = batch[self._in_key]
         if self._preshuffle == "full":
             apply_fn, target_fn = self.spec.preshuffle_train_full(model)
@@ -128,10 +132,13 @@ class Trainer:
             loss, metrics = self.loss_fn(state.model, batch, state.step)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-        state.tx.step(state.optimizer, state.step)
+        clip_scale = state.tx.step(state.optimizer, state.step)
         state.step += 1
-        return state, {"loss": loss.detach(),
-                       **{k: v.detach() for k, v in metrics.items()}}
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in metrics.items()}}
+        if clip_scale is not None:  # the recipe's gradient clip (VDSR)
+            metrics["clip_scale"] = clip_scale
+        return state, metrics
 
     def make_multi_step(self, pipeline, k: int) -> Callable:
         """K train steps in one dispatch, each batch drawn on the device

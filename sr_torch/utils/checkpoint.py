@@ -153,7 +153,9 @@ def save_params(path: str, params: Any) -> None:
 
 
 def load_params(path: str) -> tuple[dict, dict | None]:
-    """Inverse of :func:`save_params` → (params, batch_stats | None)."""
+    """Inverse of :func:`save_params` → (params, batch_stats | None). A
+    round-2 DRCN layout is moved to the current one
+    (``sr_torch.models.drcn.migrate_params_r2``)."""
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -162,4 +164,9 @@ def load_params(path: str) -> tuple[dict, dict | None]:
             for p in parents:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
-    return tree.get("params", {}), tree.get("batch_stats")
+    params = tree.get("params", {})
+    if "Scan_RecStep_0" in params:  # a round-2 DRCN export
+        from sr_torch.models.drcn import migrate_params_r2
+
+        params = migrate_params_r2(params)
+    return params, tree.get("batch_stats")

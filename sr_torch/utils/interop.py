@@ -4,7 +4,9 @@ The port keeps its own copy of the mapping that ``sr/utils/torch_interop.py``
 applies. A flax param path maps one-to-one onto a torch module path: list
 indices join their list's name with ``_`` (``blocks.0.Conv_0`` ↔
 ``blocks_0/Conv_0``), conv kernels go from flax HWIO to torch OIHW, and
-biases are copied as they are. Only convs occur in this slice's models.
+biases are copied as they are. A parameter that belongs to no conv (DRCN's
+``recursion_weights``) is a bare leaf of the tree at its module's path,
+copied as it is.
 """
 
 from __future__ import annotations
@@ -29,6 +31,16 @@ def _convs(model: nn.Module):
     for name, m in model.named_modules():
         if isinstance(m, nn.Conv2d):
             yield flax_path(name), m
+
+
+def _bare_params(model: nn.Module):
+    """(flax path, parameter) of every parameter that no conv owns."""
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d):
+            continue
+        prefix = flax_path(name) if name else ()
+        for leaf, p in m.named_parameters(recurse=False):
+            yield prefix + (leaf,), p
 
 
 def _leaf_paths(tree: dict, prefix=()) -> set[tuple[str, ...]]:
@@ -67,6 +79,16 @@ def from_jax_params(model: nn.Module, params: dict) -> nn.Module:
                 conv.bias.copy_(torch.from_numpy(
                     np.array(node["bias"], np.float32)))
                 used.add(path + ("bias",))
+        for path, p in _bare_params(model):
+            node = params
+            for k in path:
+                node = node[k]
+            value = torch.from_numpy(np.array(node, np.float32))
+            if value.shape != p.shape:
+                raise ValueError(f"{'/'.join(path)}: {tuple(value.shape)} "
+                                 f"does not fit {tuple(p.shape)}")
+            p.copy_(value)
+            used.add(path)
     extra = _leaf_paths(params) - used
     if extra:
         raise ValueError("params the model has no place for: "
@@ -89,4 +111,9 @@ def to_jax_params(model: nn.Module) -> dict:
                           .cpu().numpy().copy())
         if conv.bias is not None:
             node["bias"] = conv.bias.detach().cpu().numpy().copy()
+    for path, p in _bare_params(model):
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = p.detach().cpu().numpy().copy()
     return params

@@ -139,7 +139,7 @@ def test_registry_sees_every_port_model():
     apply_fn, r = spec.preshuffle_train(model)
     assert r == 4
     with pytest.raises(KeyError, match="later port slice"):
-        get_spec("SRCNN")
+        get_spec("SRResNet")
 
 
 # ----------------------------------------------------------- training ----

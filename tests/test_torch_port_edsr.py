@@ -353,4 +353,4 @@ def test_registry_serves_edsr_only_for_now():
                                      dtype="float32"))
     assert isinstance(model, Net) and len(model.blocks) == 2
     with pytest.raises(KeyError, match="later port slice"):
-        get_spec("SRCNN")
+        get_spec("SRResNet")

@@ -7,7 +7,6 @@ kernels take their plain PyTorch versions.
 """
 
 import ast
-import dataclasses
 import http.client
 import io
 import json
@@ -25,10 +24,12 @@ from sr.infer import upscale as jax_upscale
 from sr.models.edsr import Net as FlaxEDSR
 from sr.utils.checkpoint import save_params as jax_save_params
 from sr_torch.infer import make_serving_predict, upscale
-from sr_torch.models import registry
 from sr_torch.models.edsr import Net
 from sr_torch.models.registry import get_spec
 from sr_torch.serve import SRService, serve_background
+from sr_torch.utils.checkpoint import save_params
+from sr_torch.utils.config import SRConfig
+from sr_torch.utils.interop import to_jax_params
 
 torch.set_num_threads(1)
 
@@ -99,19 +100,25 @@ def test_upscale_defaults_to_the_card(edsr_params):
         upscale(_img(2), "EDSR", edsr_params)
 
 
-def test_upscale_refuses_what_a_later_slice_brings(edsr_params, monkeypatch):
+def test_upscale_refuses_what_a_later_slice_brings(edsr_params, tmp_path):
     with pytest.raises(NotImplementedError, match="later port slice"):
         upscale(_img(3), "EDSR", edsr_params, self_ensemble=True,
                 device="cpu")
-    # 1-channel models serve since ESPCN (tests/test_torch_espcn.py); a
-    # pre-upsample model (bicubic input: SRCNN, VDSR) still waits
-    pre = dataclasses.replace(get_spec("EDSR"), name="PRE", pre_upsample=True)
-    monkeypatch.setitem(registry._REGISTRY, "pre", pre)
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        upscale(_img(3), "PRE", edsr_params, device="cpu")
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        upscale(_img(3), "EDSR", edsr_params, scale_factor=2, net_scale=4,
-                device="cpu")
+    # 1-channel models serve since ESPCN (tests/test_torch_espcn.py) and
+    # pre-upsample models (bicubic input: SRCNN, VDSR, DRCN) since slice 9
+    # (tests/test_torch_preupsample_serve.py): SRCNN's net keeps its
+    # input's size, and the image comes out ×4
+    path = str(tmp_path / "SRCNN_params.npz")
+    save_params(path, to_jax_params(get_spec("SRCNN").make_model(
+        SRConfig(model_name="SRCNN"), torch.Generator().manual_seed(0))))
+    assert upscale(_img(3), "SRCNN", path, dtype="float32",
+                   device="cpu").shape == (56, 44, 3)
+    # net_scale (a pyramid model's level, LapSRN) still waits, for every
+    # input convention
+    for name, params in (("EDSR", edsr_params), ("SRCNN", path)):
+        with pytest.raises(NotImplementedError, match="later port slice"):
+            upscale(_img(3), name, params, scale_factor=2, net_scale=4,
+                    device="cpu")
     with pytest.raises(ValueError, match="quantize must be"):
         make_serving_predict(Net(3, 16, 1, 4), fused=False, quantize="int4")
 

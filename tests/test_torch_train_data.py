@@ -210,8 +210,10 @@ def test_pipeline_refusals(images):
         PatchPipeline(images, crop_size=30, **kw)
     with pytest.raises(ValueError, match="random_scale_mode"):
         PatchPipeline(images, crop_size=_CROP, random_scale_mode="x", **kw)
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        PatchPipeline(images, crop_size=_CROP, pre_upsample=True, **kw)
+    # pre_upsample serves since slice 9; per-sample scale factors still
+    # need it (only the bicubic-upscaled input keeps one shape)
+    with pytest.raises(ValueError, match="pre_upsample=True"):
+        PatchPipeline(images, crop_size=_CROP, scale_factors=(2, 4), **kw)
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="cuda"):
             PatchPipeline(images, crop_size=_CROP, scale_factor=_R)
