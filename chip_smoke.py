@@ -114,6 +114,37 @@ Phases; any failure raises and exits non-zero without the final line:
    read just after; each kernel row carries the launches of its shape on
    its model's serving path.
 
+11. SRResNet and SRGAN ×4 at full width (16 resblocks × 64 filters, 9×9
+   head and output convs, RGB; the discriminator at base 64): (a) the
+   shuffle (bf16 stages with the PS conv's bias, f32 stages of the int8
+   routes, the folded tail's 12-channel shuffle in bf16 and u8) and the
+   fused int8 entry (9×9 head over 3 channels, body, stages, the folded
+   5×5 256→12 and the exact 9×9 64→3 out convs) at every shape
+   ``upscale`` gives the net for (d)'s two images, one whole and one in
+   halo tiles, plus the two out convs at the throughput batch; each exact
+   against its plain version and timed as in phase 3 (library time
+   cuDNN's bf16 conv or ``F.pixel_shuffle``), each row with the launches
+   of its shape on its path; the shuffle under autograd at the training
+   shapes; (b) SRResNet training with the bench's EDSR recipe shape
+   (bf16, crop 64, b32, the synthetic corpus in a 'matrix'
+   ``PatchPipeline``): f32 step card vs CPU (gradients, batch statistics,
+   the Adam updates' signs and sizes), two K=40 dispatches after which a probe batch's loss has
+   fallen, 2 shuffles a step, a checkpoint that restores exactly; (c)
+   SRGAN with the synthetic VGG19 of ``scripts/make_synthetic_vgg.py`` at
+   relu2_2: an f32 adversarial step card vs CPU, a pretrain and two
+   adversarial K=10 dispatches with finite losses (2 and 4 shuffles a
+   step), a profile of one step, a G+D checkpoint that restores exactly;
+   (d) serving (b)'s model through ``upscale`` by five routes (exact,
+   folded, int8 static fused = the folded int8 tail, int8 static exact,
+   int8 dynamic) and one HTTP POST: per-forward launches (2 shuffles, 37
+   int8 convs on the int8 routes, no resblock), f32 card vs CPU and folded
+   vs exact ≤ 1 u8 level, int8 vs f32 interior mean ≤ 4 levels, MP/s by
+   route at b16 128² → 512² with profiles; (e) ``evaluate`` through
+   ``Trainer.make_predict_fn`` on the synthetic set and 8 procedural 384²
+   images, device metrics within 1e-4 dB / 1e-5 SSIM of the host's,
+   images/s. Each path's counts are zeroed just before it and read just
+   after.
+
 It prints the bench's JSON line, a ``{"kernels": [...]}`` JSON line, then
 the card line, then as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -2313,31 +2344,42 @@ def _pre_forward_shape(name: str, hw) -> tuple:
     return seen[0]
 
 
-class _Int8Shapes:
-    """Inside ``with``, tallies each fused int8 launch of the int8 sites by
-    (B, H, W, C, N, k); the wrapper still counts its launches."""
+class _Tally:
+    """Inside ``with``, tallies each shuffle kernel launch by (NHWC shape,
+    dtype) and each fused int8 launch of the int8 sites by (B, H, W, C, N,
+    k), on the card only; the wrappers still count their launches."""
 
     def __init__(self):
         import collections
 
-        self.counts = collections.Counter()
+        self.d2s = collections.Counter()
+        self.int8 = collections.Counter()
 
     def __enter__(self):
         from sr_torch import quant
+        from sr_torch.kernels import depth_to_space as d2s_mod
 
-        self._real = real = quant.conv_int8_fused
+        self._d2s, self._int8 = real_d2s, real_int8 = (
+            d2s_mod._forward, quant.conv_int8_fused)
 
-        def seen(x, q_w, *args, **kwargs):
-            self.counts[(*x.shape, q_w.shape[-1], q_w.shape[0])] += 1
-            return real(x, q_w, *args, **kwargs)
+        def d2s_seen(x, r, act, bias):
+            if x.is_cuda:
+                self.d2s[tuple(x.shape), x.dtype] += 1
+            return real_d2s(x, r, act, bias)
 
-        quant.conv_int8_fused = seen
+        def int8_seen(x, q_w, *args, **kwargs):
+            if x.is_cuda:
+                self.int8[(*x.shape, q_w.shape[-1], q_w.shape[0])] += 1
+            return real_int8(x, q_w, *args, **kwargs)
+
+        d2s_mod._forward, quant.conv_int8_fused = d2s_seen, int8_seen
         return self
 
     def __exit__(self, *exc):
         from sr_torch import quant
+        from sr_torch.kernels import depth_to_space as d2s_mod
 
-        quant.conv_int8_fused = self._real
+        d2s_mod._forward, quant.conv_int8_fused = self._d2s, self._int8
 
 
 def _zero_counts() -> dict:
@@ -2447,7 +2489,7 @@ def _pre_train(card: str, name: str, images):
     return tr, state
 
 
-def _pre_serve(card: str, name: str, state, shapes: _Int8Shapes) -> None:
+def _pre_serve(card: str, name: str, state, shapes: _Tally) -> None:
     """(c) The trained params, saved in the JAX package's .npz format,
     served through ``upscale`` on RGB images (the net on the ×4 bicubic
     upscale of Y; one image in halo tiles) in bf16, f32, int8 static and
@@ -2644,18 +2686,652 @@ def phase_preupsample(card: str) -> list[dict]:
     for name in PRE_INT8:
         t1 = time.perf_counter()
         tr, state = _pre_train(card, name, images)
-        shapes[name] = _Int8Shapes()
+        shapes[name] = _Tally()
         _pre_serve(card, name, state, shapes[name])
         _pre_eval(card, name, tr, state, sets)
         del tr, state
         torch.cuda.empty_cache()
         print(f"[10] {name} seconds {time.perf_counter() - t1:.1f}")
     for row in rows:
-        row["launches"] = shapes[row.pop("model")].counts[tuple(row["shape"])]
+        row["launches"] = shapes[row.pop("model")].int8[tuple(row["shape"])]
     check(all(row["launches"] > 0 for row in rows),
           "a pre-upsample kernel row's shape was not launched on its path: "
           f"{[(r['name'], r['shape'], r['launches']) for r in rows]}")
     print(f"[10] phase seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 11: SRResNet and SRGAN ×4
+# ----------------------------------------------------------------------
+
+#: SRResNet ×4 at full width (16 × 64, 9×9 head and out conv, RGB): the
+#: images served in (d), (H, W); the first runs whole, the second in 4 halo
+#: windows of 344×300 (upscale's tile 256, halo 44)
+SR_IMAGES = ((96, 80), (360, 300))
+#: the int8 sites a forward by kind: (name, C, N, k, the site's size over
+#: the LR input's, sites a forward); the folded int8 tail runs the folded
+#: out conv, the exact graphs (static exact, dynamic) the 9×9 one
+SR_INT8 = (("head", 3, 64, 9, 1, 1), ("body", 64, 64, 3, 1, 33),
+           ("stage 1", 64, 256, 3, 1, 1), ("stage 2", 64, 256, 3, 2, 1),
+           ("folded out conv", 256, 12, 5, 2, 1),
+           ("exact out conv", 64, 3, 9, 4, 1))
+#: the shuffles a serving forward runs, by route: (name, C·r², size over
+#: the LR input's, dtype, with the PS conv's or the folded conv's bias)
+SR_D2S = (("stage 1 (float routes)", 256, 1, torch.bfloat16, True),
+          ("stage 2 (exact route)", 256, 2, torch.bfloat16, True),
+          ("folded tail (folded route)", 12, 2, torch.bfloat16, True),
+          ("stage 1 (int8 routes)", 256, 1, torch.float32, False),
+          ("stage 2 (int8 exact routes)", 256, 2, torch.float32, False),
+          ("folded tail (int8 static fused, u8 out)", 12, 2, torch.uint8,
+           False))
+#: serving routes (name, dtype, fused, quantize), all through upscale
+SR_ROUTES = (("exact", "bfloat16", False, False),
+             ("folded", "bfloat16", True, False),
+             ("int8 static fused", "bfloat16", True, "static"),
+             ("int8 static exact", "bfloat16", False, "static"),
+             ("int8 dynamic", "bfloat16", False, "dynamic"))
+#: per forward: (shuffles, fused int8 launches) by route
+SR_PER_FWD = {"exact": (2, 0), "folded": (2, 0), "int8 static fused": (2, 37),
+              "int8 static exact": (2, 37), "int8 dynamic": (2, 37)}
+SR_K = 40  # SRResNet steps a dispatch
+GAN_K = 10  # SRGAN steps a dispatch (each step: D and G updates)
+
+
+def _sr_forward_shape(hw) -> tuple:
+    """The (B, H, W) batch that ``upscale`` hands SRResNet's net for an RGB
+    image of ``hw``: whole, or its halo tiles in one call."""
+    from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
+
+    seen = []
+
+    def record(t):
+        seen.append(tuple(t.shape[:3]))
+        return t.new_zeros((t.shape[0], 4 * t.shape[1], 4 * t.shape[2], 3))
+
+    tiled_predict(record, torch.zeros((1, *hw, 3)), 4, tile=256,
+                  halo=RECEPTIVE_FIELD["srresnet"])
+    check(len(seen) == 1, f"SRResNet serving of {hw} takes {len(seen)} calls")
+    return seen[0]
+
+
+def _sr_int8_row(card: str, gen, name: str, shape, n: int, k: int) -> dict:
+    """The fused int8 entry at one SRResNet site's shape: bit for bit
+    against its plain version (per-sample and per-channel scales,
+    :func:`_int8_exact`), its time, the plain version's and cuDNN's bf16
+    conv (the library time) beside the bound. Returns the kernels-line
+    row."""
+    from sr_torch.kernels.int8_conv import (
+        conv_int8_fused, conv_int8_fused_plain)
+
+    b, h, w, c = shape
+    (x, q_w, packed, scale, dequant, bias, q_x), err = _int8_exact(
+        gen, name, shape, n, k)
+    del q_x
+    t_k = kernel_ms(lambda: conv_int8_fused(x, q_w, scale, dequant, bias,
+                                            packed=packed))
+    # the plain version runs an exact float64 conv: up to 0.5 s a call at
+    # the tiled image's 9×9 out conv, so fewer calls
+    t_p = kernel_ms(lambda: conv_int8_fused_plain(x, q_w, scale, dequant,
+                                                  bias), n=2, reps=2,
+                    warmup=1)
+    xb = x.permute(0, 3, 1, 2).bfloat16()
+    kb = q_w.permute(3, 2, 0, 1).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    t_c = kernel_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
+    del xb, x
+    ops = 2 * b * h * w * k * k * c * n
+    t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
+    nbytes = 4 * b * h * w * c + k * k * c * n + 4 * b * h * w * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+    print(f"[11] int8_conv SRResNet {name} {(b, h, w, c)}->{n} k={k}: fused "
+          f"kernel {t_k:.4f} ms (bound {bound:.4f} ms, {by}; ops "
+          f"{t_ops:.4f}, bytes {t_bytes:.4f}), plain {t_p:.4f} ms, cuDNN "
+          f"bf16 conv {t_c:.4f} ms; == plain | {card}")
+    return dict(
+        name="int8_conv", route="cuda",
+        source="sr_torch/kernels/csrc/int8_conv.cu",
+        replaces="sr/kernels/int8_conv.py:75", launches=None,
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by=by,
+        library_ms=t_c, library="cuDNN bf16 conv", shape=[b, h, w, c, n, k],
+        dtype="f32 -> int8 -> f32 (fused entry)",
+        path=f"SRResNet int8 serving, {name}")
+
+
+def _sr_kernel_rows(card: str) -> list[dict]:
+    """(a) Both kernels at every SRResNet serving shape of the two images
+    (the shuffle by route and dtype, the int8 entry by site), exact against
+    their plain versions and timed; launches are filled in from (d)'s
+    tallies."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for hw in SR_IMAGES:
+        b, h, w = _sr_forward_shape(hw)
+        for name, cin, f, dtype, with_bias in SR_D2S:
+            shape = (b, f * h, f * w, cin)
+            row = _d2s_row(card, gen, shape, 2, dtype, tag="[11]",
+                           path=f"SRResNet serving, {name}, {hw[0]}x{hw[1]} "
+                                "image")
+            row["with_bias_on_path"] = with_bias
+            rows.append(row)
+        for name, c, n, k, f, _ in SR_INT8:
+            rows.append(_sr_int8_row(card, gen, f"{name}, {hw[0]}x{hw[1]} "
+                                     "image", (b, f * h, f * w, c), n, k))
+        torch.cuda.empty_cache()
+    # the two out convs at the throughput batch, b16 128² -> 512²
+    for name, shape, n, k in (("folded out conv, b16", (16, 256, 256, 256),
+                               12, 5),
+                              ("exact out conv, b16", (16, 512, 512, 64), 3,
+                               9)):
+        rows.append(_sr_int8_row(card, gen, name, shape, n, k))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _sr_step_card_vs_cpu(cfg, batch) -> None:
+    """One f32 SRResNet train step on the card (TF32 off) against the CPU's
+    from the same weights and batch: the loss within 1e-5 relative; every
+    gradient within 1e-3 of its largest entry (float32 summation order),
+    except the conv biases a train-mode BN follows, whose gradient is zero
+    up to rounding (both below 1e-3 of the step's largest gradient); every
+    running statistic within 1e-4; the Adam update of every parameter
+    entry whose CPU gradient exceeds 1e-2 of its tensor's largest (the
+    gradient check's noise ×10; the pre-BN biases aside) has the CPU's
+    sign and lies within 1e-2·lr of the CPU's. Adam's first update is
+    about ±lr whatever the gradient's size, so a bound on the parameters
+    alone could not fail; a flipped sign moves the update by 2·lr."""
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.precision import no_tf32
+
+    cfg32 = cfg.replace(dtype="float32")
+    out = []
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg32, device=device)
+        st = tr.init_state(5)
+        b = {k: v.to(device) for k, v in batch.items()}
+        p0 = {n: p.detach().float().cpu().clone() for n, p in
+              st.model.named_parameters()}
+        with no_tf32():
+            _, m = tr.train_step(st, b)
+        out.append((float(m["loss"]),
+                    {n: t.float().cpu() for n, t in
+                     st.model.state_dict().items()},
+                    {n: p.grad.float().cpu() for n, p in
+                     st.model.named_parameters()},
+                    {n: p.detach().float().cpu() - p0[n] for n, p in
+                     st.model.named_parameters()}))
+    (l_card, sd_card, g_card, u_card), (l_cpu, sd_cpu, g_cpu, u_cpu) = out
+    lr = cfg.effective_lr
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst_g, worst_noise = (0.0, ""), (0.0, "")
+    for n, g in g_cpu.items():
+        if _pre_bn_bias(n):
+            worst_noise = max(worst_noise, (max(float(g.abs().max()), float(
+                g_card[n].abs().max())) / top, n))
+        else:
+            worst_g = max(worst_g, (float((g_card[n] - g).abs().max()
+                                          / g.abs().max()), n))
+    worst_s = max((float((sd_card[n] - t).abs().max()), n)
+                  for n, t in sd_cpu.items() if n.endswith((".mean", ".var")))
+    flips, worst_u, held, total = 0, (0.0, ""), 0, 0
+    for n, g in g_cpu.items():
+        total += g.numel()
+        if _pre_bn_bias(n):
+            continue
+        sure = g.abs() > 1e-2 * g.abs().max()
+        if not sure.any():
+            continue
+        held += int(sure.sum())
+        flips += int((torch.sign(u_card[n]) != torch.sign(u_cpu[n]))[
+            sure].sum())
+        worst_u = max(worst_u, (float((u_card[n] - u_cpu[n])[sure].abs()
+                                      .max()) / lr, n))
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"[11] f32 SRResNet train step, card vs CPU (TF32 off): loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_err:.2e}, tol 1e-5); "
+          f"worst gradient {worst_g} (tol 1e-3), pre-BN bias gradients "
+          f"{worst_noise} of the largest (tol 1e-3), running statistics "
+          f"{worst_s} (tol 1e-4); Adam updates of {held} of {total} "
+          f"entries: {flips} signs differ (tol 0), worst {worst_u} of lr "
+          f"(tol 1e-2)")
+    check(loss_err <= 1e-5 and worst_g[0] <= 1e-3 and worst_noise[0] <= 1e-3
+          and worst_s[0] <= 1e-4 and flips == 0 and worst_u[0] <= 1e-2
+          and held > total // 2,
+          "the card's f32 SRResNet step differs from the CPU's")
+
+
+def _pre_bn_bias(name: str) -> bool:
+    """An SRResNet conv bias that a batch norm follows (each block's two
+    convs, the body conv): in train mode the norm subtracts the batch
+    mean, so its gradient is zero up to rounding."""
+    return name == "body_conv.bias" or (
+        name.startswith("blocks.")
+        and name.endswith(("Conv_0.bias", "Conv_1.bias")))
+
+
+def _same_train_state(a, b) -> bool:
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()[
+        "state"]
+    return (a.step == b.step and all(torch.equal(sa[n], sb[n]) for n in sa)
+            and all(torch.equal(oa[i][k], ob[i][k]) for i in oa
+                    for k in oa[i])
+            and (a.generator is None or torch.equal(
+                a.generator.get_state(), b.generator.get_state())))
+
+
+def _sr_train(card: str, pipe, tally: _Tally):
+    """(b) SRResNet ×4 trains with the bench's EDSR recipe shape (bf16, crop
+    64, b32, the synthetic corpus in a 'matrix' PatchPipeline): the f32
+    step card vs CPU (params and batch statistics), then the train path
+    with its counts zeroed just before and read just after: two K=40
+    dispatches, after which a fixed probe batch's loss (train-mode forward,
+    running statistics untouched) must have fallen, 2 shuffles a step and
+    no resblock kernel; a checkpoint that restores exactly. Returns the
+    trainer and state."""
+    import tempfile
+
+    from sr_torch.nn.blocks import frozen_batch_stats
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.checkpoint import Checkpointer, run_meta
+    from sr_torch.utils.config import SRConfig
+
+    cfg = SRConfig(model_name="SRResNet", num_channels=3, scale_factor=4,
+                   crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH,
+                   dtype="bfloat16")
+    batch = pipe(torch.Generator(device="cuda").manual_seed(9))
+    _sr_step_card_vs_cpu(cfg, {k: v[:2] for k, v in batch.items()})
+    tr = Trainer(cfg)
+    state = tr.init_state(1)
+    multi = tr.make_multi_step(pipe, SR_K)
+    probe = pipe(torch.Generator(device="cuda").manual_seed(11))
+
+    def probe_loss() -> float:
+        state.model.train()
+        with torch.no_grad(), frozen_batch_stats():
+            return float(tr.loss_fn(state.model, probe, 0)[0])
+
+    before = probe_loss()
+    print(f"[11] SRResNet x4 train: {tr.num_params(state)} params, bf16, "
+          f"crop {TRAIN_CROP} b{TRAIN_BATCH}, MSE, Adam "
+          f"{tr.cfg.effective_lr:g}, PatchPipeline '{pipe.random_scale_mode}'"
+          f" on {pipe.bank.device}")
+
+    # ---- the train path: counts zeroed just before, read just after ----
+    fns = _zero_counts()
+    times, losses = [], []
+    with tally:
+        for _ in range(2):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            m = multi(state)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+    launches = {n: fn.launches for n, fn in fns.items()}
+    after = probe_loss()
+    print(f"[11] SRResNet two K={SR_K} dispatches: {times[0]:.1f} / "
+          f"{times[1]:.1f} ms ({SR_K / times[1] * 1e3:.2f} steps/s in the "
+          f"second, one dispatch, not a marginal), mean loss {losses[0]:.6f}"
+          f" then {losses[1]:.6f}; probe loss {before:.6f} -> {after:.6f}; "
+          f"launches {launches} | {card}")
+    check(launches == {"depth_to_space": 2 * 2 * SR_K, "fused_resblock": 0,
+                       "int8_conv": 0, "int8_conv raw entry": 0},
+          "the SRResNet train path must run 2 shuffles a step and no other "
+          "kernel")
+    check(after < before, "the SRResNet loss did not fall")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="srresnet_ckpt_", dir=out_dir)
+    ckpt = Checkpointer(ckpt_dir, meta=run_meta(cfg))
+    ckpt.save(state)
+    restored = ckpt.restore(tr.init_state(99))
+    check(_same_train_state(restored, state)
+          and restored.step == 2 * SR_K,
+          "the SRResNet checkpoint did not restore the trained state "
+          "(params, batch statistics, Adam, step, sampler)")
+    print(f"[11] SRResNet checkpoint at step {state.step} restores params, "
+          "batch statistics, Adam moments, step and sampler exactly")
+    shutil.rmtree(ckpt_dir)
+    return tr, state
+
+
+def _gan_train(card: str, pipe) -> None:
+    """(c) SRGAN ×4 at full width (G 16 × 64, D base 64 on the 64² crop,
+    VGG19 to relu2_2 from ``scripts/make_synthetic_vgg.py``), bf16, b32:
+    an f32 adversarial step card vs CPU (d_loss, g_loss, G on a probe),
+    then the train path with its counts zeroed just before and read just
+    after: one pretrain dispatch and two adversarial dispatches of K=10
+    (finite losses; 2 shuffles a pretrain step, 4 an adversarial one: the
+    detached fake and the G update), their steps/s and a profile of one
+    adversarial step; a G+D checkpoint that restores exactly."""
+    import tempfile
+
+    from sr_torch.train.gan import GANTrainer
+    from sr_torch.utils.checkpoint import Checkpointer, run_meta
+    from sr_torch.utils.config import SRConfig
+    from sr_torch.utils.precision import no_tf32
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    vgg_dir = Path(tempfile.mkdtemp(prefix="vgg_", dir=out_dir))
+    vgg = vgg_dir / "vgg19_synthetic.pth"
+    subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                        "make_synthetic_vgg.py"), str(vgg)],
+                   check=True, capture_output=True, timeout=300)
+    cfg = SRConfig(model_name="SRGAN", num_channels=3, scale_factor=4,
+                   crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH,
+                   dtype="bfloat16", vgg_weights_path=str(vgg),
+                   vgg_output_layer="relu2_2")
+    batch = pipe(torch.Generator(device="cuda").manual_seed(12))
+    small = {k: v[:2] for k, v in batch.items()}
+    probe = batch["lr"][2:4]
+    res = []
+    for device in ("cuda", "cpu"):
+        tr = GANTrainer(cfg.replace(dtype="float32"), device=device)
+        g, d = tr.init_states(5)
+        with no_tf32():
+            _, _, m = tr.adversarial_step(
+                g, d, {k: v.to(device) for k, v in small.items()})
+            res.append(({k: float(v) for k, v in m.items()},
+                        tr.predict(g, probe.to(device)).float().cpu()))
+    (m_card, p_card), (m_cpu, p_cpu) = res
+    errs = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+            for k in ("d_loss", "g_loss")}
+    p_err = float((p_card - p_cpu).abs().max())
+    print(f"[11] f32 SRGAN adversarial step, card vs CPU (TF32 off): "
+          f"d_loss {m_card['d_loss']:.6f} vs {m_cpu['d_loss']:.6f}, g_loss "
+          f"{m_card['g_loss']:.6f} vs {m_cpu['g_loss']:.6f} (rel "
+          f"{errs}, tol 1e-4); G on a probe after the step: max |card - "
+          f"CPU| {p_err:.2e} (tol 3e-4)")
+    check(max(errs.values()) <= 1e-4 and p_err <= 3e-4,
+          "the card's f32 SRGAN adversarial step differs from the CPU's")
+
+    tr = GANTrainer(cfg)
+    g, d = tr.init_states(1)
+    pre = tr.make_multi_step(pipe, GAN_K, "pretrain")
+    adv = tr.make_multi_step(pipe, GAN_K, "adversarial")
+    print(f"[11] SRGAN x4 train: G {sum(p.numel() for p in g.model.parameters())}"
+          f" params, D {sum(p.numel() for p in d.model.parameters())} params,"
+          f" VGG19 to relu2_2 (synthetic torchvision weights), bf16, crop "
+          f"{TRAIN_CROP} b{TRAIN_BATCH}")
+
+    # ---- the train path: counts zeroed just before, read just after ----
+    fns = _zero_counts()
+    metrics, times = [], []
+    for phase in ("pretrain", "adversarial", "adversarial"):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = pre(g) if phase == "pretrain" else adv(g, d)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+        print(f"[11] SRGAN {phase} K={GAN_K} dispatch: {times[-1]:.1f} ms "
+              f"({GAN_K / times[-1] * 1e3:.2f} steps/s, one dispatch, not a "
+              f"marginal); mean metrics {metrics[-1]} | {card}")
+    launches = {n: fn.launches for n, fn in fns.items()}
+    print(f"[11] SRGAN train-path launches: {launches}")
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          "an SRGAN loss is not finite")
+    check(launches == {"depth_to_space": 2 * GAN_K + 2 * 4 * GAN_K,
+                       "fused_resblock": 0, "int8_conv": 0,
+                       "int8_conv raw entry": 0},
+          "the SRGAN train path must run 2 shuffles a pretrain step, 4 an "
+          "adversarial step, and no other kernel")
+    profile_batches(lambda: tr.adversarial_step(g, d, pipe(g.generator)),
+                    "SRGAN adversarial step bf16 b32", card, n=3,
+                    tag="[11]", unit="step")
+    gck = Checkpointer(tempfile.mkdtemp(prefix="srgan_g_", dir=out_dir),
+                       meta=run_meta(cfg))
+    dck = Checkpointer(tempfile.mkdtemp(prefix="srgan_d_", dir=out_dir))
+    gck.save(g)
+    dck.save(d, step=g.step)
+    g2, d2 = tr.init_states(99)
+    g2, d2 = gck.restore(g2), dck.restore(d2)
+    check(_same_train_state(g, g2) and _same_train_state(d, d2),
+          "the SRGAN G+D checkpoint did not restore both states exactly")
+    print(f"[11] SRGAN checkpoint at G step {g.step} (D step {d.step}) "
+          "restores G and D exactly")
+    for p in (gck.directory, dck.directory, vgg_dir):
+        shutil.rmtree(p)
+
+
+def _sr_serve(card: str, state, tally: _Tally) -> None:
+    """(d) The trained SRResNet, saved with its batch statistics in the JAX
+    package's .npz format, served through ``upscale`` by every route on
+    the two images and through one HTTP POST (int8 static), the counts
+    zeroed just before and read just after (tallied by shape into
+    ``tally``); per-forward launches by route; f32 card vs CPU and the
+    folded route against the exact one within one u8 level; int8 against
+    f32 interiors; MP/s by route at b16 128² → 512² (tallied too)."""
+    from PIL import Image
+
+    from sr_torch.infer import make_serving_predict, upscale
+    from sr_torch.serve import SRService, serve_background
+    from sr_torch.utils.checkpoint import save_params
+    from sr_torch.utils.interop import to_jax_batch_stats, to_jax_params
+    from sr_torch.utils.precision import no_tf32
+
+    path = str(ROOT / "build" / "chip_smoke" / "SRResNet_x4_trained.npz")
+    save_params(path, to_jax_params(state.model),
+                to_jax_batch_stats(state.model))
+    rng = np.random.default_rng(11)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in SR_IMAGES]
+
+    # ---- the serving path: counts zeroed just before, read just after --
+    fns = _zero_counts()
+    outs = {}
+    with tally:
+        for name, dtype, fused, quantize in SR_ROUTES:
+            for img in imgs:
+                t0 = time.perf_counter()
+                out = upscale(img, "SRResNet", path, dtype=dtype,
+                              fused=fused, quantize=quantize)
+                ms = (time.perf_counter() - t0) * 1e3
+                h, w = img.shape[:2]
+                check(out.shape == (4 * h, 4 * w, 3)
+                      and out.dtype == np.uint8,
+                      f"SRResNet upscale output {out.shape} {out.dtype}")
+                outs[name, img.shape] = out
+                print(f"[11] upscale SRResNet {h}x{w} {name} ({dtype}): "
+                      f"{out.shape} uint8 in {ms:.1f} ms (host clock, first "
+                      "call loads/calibrates)")
+        service = SRService(model_name="SRGAN", params=path, scale_factor=4,
+                            quantize="static")
+        httpd, port = serve_background(service)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/upscale", body=_png(imgs[0]),
+                     headers={"Content-Type": "image/png"})
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        httpd.shutdown()
+        httpd.server_close()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    check(resp.status == 200, f"POST /upscale SRGAN: {resp.status}")
+    check(np.array_equal(np.asarray(Image.open(io.BytesIO(body))),
+                         outs["int8 static fused", imgs[0].shape]),
+          "the served SRGAN PNG differs from a direct int8 upscale")
+    print(f"[11] POST /upscale (SRGAN, int8 static) == direct upscale; "
+          f"serving-path launches: {launches}")
+    check(launches["depth_to_space"] > 0 and launches["int8_conv"] > 0
+          and launches["fused_resblock"] == 0
+          and launches["int8_conv raw entry"] == 0,
+          "the SRResNet serving path must run its shuffles and int8 convs "
+          "through the kernels, and no resblock")
+
+    # ---- per-forward counts (the loaded functions are cached) ----
+    fns = _zero_counts()
+    for name, dtype, fused, quantize in SR_ROUTES:
+        before = {n: fn.launches for n, fn in fns.items()}
+        upscale(imgs[0], "SRResNet", path, dtype=dtype, fused=fused,
+                quantize=quantize)
+        got = {n: fn.launches - before[n] for n, fn in fns.items()}
+        d2s, q = SR_PER_FWD[name]
+        print(f"[11] one SRResNet {name} forward: {got}")
+        check(got == {"depth_to_space": d2s, "fused_resblock": 0,
+                      "int8_conv": q, "int8_conv raw entry": 0},
+              f"unexpected SRResNet launches per forward ({name})")
+
+    # ---- f32: card vs CPU, folded vs exact (TF32 off) ----
+    with no_tf32():
+        card_out = upscale(imgs[0], "SRResNet", path, dtype="float32")
+        folded = upscale(imgs[0], "SRResNet", path, dtype="float32",
+                         fused=True)
+    cpu_out = upscale(imgs[0], "SRResNet", path, dtype="float32",
+                      device="cpu")
+    d = np.abs(card_out.astype(np.int32) - cpu_out)
+    df = np.abs(folded.astype(np.int32) - card_out)
+    print(f"[11] SRResNet f32 upscale {imgs[0].shape[:2]}: card vs CPU max "
+          f"{d.max()} u8 levels, mean {d.mean():.5f} (tol 1); folded vs "
+          f"exact on the card max {df.max()}, mean {df.mean():.5f} (tol 1)")
+    check(d.max() <= 1 and df.max() <= 1,
+          "the SRResNet f32 upscale differs card vs CPU or folded vs exact")
+
+    # ---- int8 against f32, interiors (the 9×9 head's half-width, HR px:
+    # the folded tail is exact, so no border band needs more) ----
+    m = 4 * 4
+    with no_tf32():
+        f32 = {img.shape: upscale(img, "SRResNet", path, dtype="float32")
+               for img in imgs}
+    for name, _, _, quantize in SR_ROUTES:
+        if not quantize:
+            continue
+        for img in imgs:
+            a = outs[name, img.shape].astype(np.int32)
+            dd = np.abs(a - f32[img.shape])[m:-m, m:-m]
+            print(f"[11] SRResNet {name} vs f32 interior {img.shape[:2]}: "
+                  f"max {dd.max()} u8 levels, mean {dd.mean():.4f} (tol "
+                  "mean 4)")
+            check(dd.mean() <= 4, f"SRResNet {name} interior too far from "
+                  "f32")
+
+    # ---- throughput by route, b16 128² -> 512² (one event pair a batch) --
+    model = state.model.eval()
+    x = torch.rand((16, 128, 128, 3), device="cuda")
+    mp = 16 * 512 * 512 / 1e6
+    with torch.inference_mode(), tally:
+        for name, _, fused, quantize in SR_ROUTES:
+            fn = make_serving_predict(model, fused, quantize,
+                                      calib_headroom=1.25)
+            if quantize == "static":
+                fn.calibrate([x])
+            ms = time_ms(lambda: fn(x), n=10)
+            print(f"[11] SRResNet x4 {name} bf16 b16 128->512: {ms:.3f} "
+                  f"ms/batch, {mp / ms * 1e3:.1f} MP/s | {card}")
+            if name in ("exact", "int8 static fused"):
+                profile_batches(lambda: fn(x), f"SRResNet {name}", card,
+                                n=3, tag="[11]")
+
+
+def _sr_eval(card: str, tr, state, sets) -> None:
+    """(e) The trained SRResNet through ``evaluate`` and
+    ``Trainer.make_predict_fn`` (batch norms in eval mode) on the synthetic
+    set and 8 procedural 384² images (RGB), host and device metrics, the
+    counts zeroed just before and read just after (2 shuffles a predict,
+    no other kernel); device metrics within 1e-4 dB and 1e-5 SSIM of the
+    host's; images/s by CUDA events."""
+    predict = functools.partial(tr.make_predict_fn(), state.model)
+    kw = dict(scale_factor=4, channels=3, color_space="rgb")
+    for _, ds in sets:  # warm-up: cuDNN's plans at each shape
+        _timed_eval(predict, ds, on_device_metrics=True, **kw)
+    fns = _zero_counts()
+    runs = {(set_name, on_dev): _timed_eval(predict, ds,
+                                            on_device_metrics=on_dev, **kw)
+            for set_name, ds in sets for on_dev in (False, True)}
+    launches = {n: fn.launches for n, fn in fns.items()}
+    calls = sum(r[3].calls for r in runs.values())
+    check(launches == {"depth_to_space": 2 * calls, "fused_resblock": 0,
+                       "int8_conv": 0, "int8_conv raw entry": 0},
+          f"the SRResNet eval path ran {launches} over {calls} predicts")
+    for set_name, _ in sets:
+        host, dev = runs[set_name, False][0], runs[set_name, True][0]
+        _check_eval(host, f"SRResNet {set_name}")
+        _check_eval(dev, f"SRResNet {set_name}")
+        pairs = list(zip(host.images, dev.images))
+        dp = max(abs(a.psnr_sr - b.psnr_sr) for a, b in pairs)
+        dss = max(abs(a.ssim_sr - b.ssim_sr) for a, b in pairs)
+        print(f"[11] SRResNet eval {set_name} (RGB): host vs device metrics,"
+              f" PSNR max diff {dp:.3g} dB (tol 1e-4), SSIM {dss:.3g} (tol "
+              f"1e-5); model {host.avg_psnr_sr:.4f} dB, bicubic "
+              f"{host.avg_psnr_bicubic:.4f} dB")
+        check(dp <= 1e-4 and dss <= 1e-5,
+              f"SRResNet {set_name}: device metrics differ from the host's")
+        for on_dev in (False, True):
+            res, ms, pred_ms, _ = runs[set_name, on_dev]
+            n = len(res.images)
+            print(f"[11] SRResNet eval {set_name}, "
+                  f"{'device' if on_dev else 'host'} metrics: "
+                  f"{n / ms * 1e3:.2f} images/s, {ms / n:.3f} ms/image (CUDA "
+                  f"events), predict {pred_ms / n:.3f} ms/image "
+                  f"({100 * pred_ms / ms:.1f}% of the span) | {card}")
+
+
+def phase_srresnet(card: str) -> list[dict]:
+    """Phase 11: SRResNet and SRGAN ×4 at full width. (a) both kernels at
+    every SRResNet serving shape, exact and timed; (b) SRResNet training,
+    (c) SRGAN training in both phases, (d) serving by every route and
+    (e) eval, through the port's entry points, each path with its own
+    zeroed counts. Returns the kernel rows, each with the launches of its
+    shape on its path."""
+    from sr_torch.data.datasets import SyntheticDataset, get_test_set
+    from sr_torch.data.pipeline import PatchPipeline
+    from sr_torch.data.procedural import ProceduralDataset
+
+    t0 = time.perf_counter()
+    rows = _sr_kernel_rows(card)
+    print(f"[11] kernel rows: {time.perf_counter() - t0:.1f} s")
+    ds = SyntheticDataset(num_images=32, size=(160, 160), channels=3,
+                          seed=100)
+    pipe = PatchPipeline([ds[i] for i in range(len(ds))],
+                         crop_size=TRAIN_CROP, scale_factor=4,
+                         batch_size=TRAIN_BATCH, channels=3)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    train_tally, serve_tally = _Tally(), _Tally()
+    train_rows = _train_d2s(card, gen, tag="[11]",
+                            path="SRResNet train forward (PS conv bias "
+                                 "inside, PReLU after)")
+    t1 = time.perf_counter()
+    tr, state = _sr_train(card, pipe, train_tally)
+    print(f"[11] SRResNet training seconds {time.perf_counter() - t1:.1f}")
+    t1 = time.perf_counter()
+    _gan_train(card, pipe)
+    torch.cuda.empty_cache()
+    print(f"[11] SRGAN training seconds {time.perf_counter() - t1:.1f}")
+    t1 = time.perf_counter()
+    _sr_serve(card, state, serve_tally)
+    torch.cuda.empty_cache()
+    print(f"[11] serving seconds {time.perf_counter() - t1:.1f}")
+    t1 = time.perf_counter()
+    sets = (("synthetic",
+             get_test_set(str(ROOT / "build" / "chip_smoke"), "synthetic")),
+            ("procedural", ProceduralDataset(
+                num_images=8, size=(384, 384), split="test",
+                color_space="rgb")))
+    for _, test_set in sets:
+        for i in range(len(test_set)):
+            test_set[i]
+    _sr_eval(card, tr, state, sets)
+    print(f"[11] eval seconds {time.perf_counter() - t1:.1f}")
+    for row in train_rows:
+        row["launches"] = train_tally.d2s[tuple(row["shape"]),
+                                          torch.bfloat16]
+    for row in rows:
+        if row["name"] == "depth_to_space":
+            dtype = getattr(torch, row["dtype"])
+            row["launches"] = serve_tally.d2s[tuple(row["shape"]), dtype]
+        else:
+            row["launches"] = serve_tally.int8[tuple(row["shape"])]
+    rows += train_rows
+    check(all(row["launches"] > 0 for row in rows),
+          "an SRResNet kernel row's shape was not launched on its path: "
+          f"{[(r['name'], r['shape'], r['dtype'], r['launches']) for r in rows]}")
+    print(f"[11] phase seconds {time.perf_counter() - t0:.1f}")
     return rows
 
 
@@ -2760,6 +3436,8 @@ def main() -> int:
     phase_bench(card, entries)
     torch.cuda.empty_cache()
     entries += phase_preupsample(card)
+    torch.cuda.empty_cache()
+    entries += phase_srresnet(card)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

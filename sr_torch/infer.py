@@ -2,14 +2,16 @@
 
 Port of ``sr/infer.py``, in float or int8: it loads exported params (the
 JAX package's ``.npz`` format), picks the input convention (the raw LR
-image for EDSR and ESPCN; for the pre-upsample models SRCNN, VDSR and DRCN
-the image bicubic-upscaled on the host, ``resize_bicubic_u8``, with a net
-whose output has its input's size), routes big images through halo-tiled
-inference, optionally uses the fused affine tail, runs every conv as int8
-(``quantize``), and can quantize the output to uint8 on the device. A
-1-channel model super-resolves the luma of an RGB (or YCbCr) image and
-merges bicubic-upscaled chroma back; one full-image bicubic upscale serves
-a pre-upsample model's input and the chroma.
+image for EDSR, ESPCN, SRResNet and SRGAN; for the pre-upsample models
+SRCNN, VDSR and DRCN the image bicubic-upscaled on the host,
+``resize_bicubic_u8``, with a net whose output has its input's size),
+routes big images through halo-tiled inference, optionally uses the fused
+or folded tail, runs every conv as int8 (``quantize``), and can quantize
+the output to uint8 on the device. Batch-norm models (SRResNet, SRGAN's
+generator) load their ``batch_stats`` from the file and serve in eval
+mode. A 1-channel model super-resolves the luma of an RGB (or YCbCr)
+image and merges bicubic-upscaled chroma back; one full-image bicubic
+upscale serves a pre-upsample model's input and the chroma.
 
     from sr_torch.infer import upscale
     sr_img = upscale(img_u8, "EDSR", "results/EDSR_x4/EDSR_params.npz",
@@ -33,6 +35,8 @@ from sr_torch.eval.metrics import rgb_to_ycbcr, ycbcr_to_rgb
 from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
 from sr_torch.kernels.fused_tail import (
     make_fused_tail_predict, make_fused_tail_predict_quant)
+from sr_torch.kernels.shuffle_fold import (
+    make_folded_tail_predict, make_folded_tail_predict_quant)
 from sr_torch.models.registry import get_spec
 from sr_torch.quant import make_quantized_predict, to_u8
 from sr_torch.utils.checkpoint import load_params
@@ -43,35 +47,54 @@ from sr_torch.utils.interop import from_jax_params
 _LATER = "lands in a later port slice"
 
 
+def tail_kind(model) -> str | None:
+    """How ``fused`` serves ``model``: ``"affine"`` for an activation-free
+    pixel-shuffle tail (EDSR), which collapses to one conv; ``"folded"``
+    for a tail whose stages carry an activation (SRResNet's and SRGAN's
+    PReLU), whose output conv folds through the last shuffle; None for a
+    model without a ``tail`` (ESPCN, SRCNN, VDSR, DRCN). The JAX package
+    reaches the same routes by trying the affine collapse first."""
+    if not hasattr(model, "tail"):
+        return None
+    affine = all(up.act in (None, "none") and up.norm is None
+                 for up in model.upsample)
+    return "affine" if affine else "folded"
+
+
 def make_serving_predict(model, fused: bool, quantize: bool | str = False,
                          calib_headroom: float = 1.0,
                          output_u8: bool = False, calib_batches=None):
     """The serving-variant policy (``sr/infer.py:make_serving_predict``):
-    ``fused`` collapses the affine tail of a model that has one (EDSR);
-    a model without a ``tail`` (ESPCN, SRCNN, VDSR, DRCN), or
-    ``fused=False``, runs the exact graph: ``fused`` is a hint. ``quantize`` runs every conv as int8: ``True``/``"dynamic"``
-    with per-sample activation scales on the exact graph; ``"static"``
-    with scales calibrated on the first batch (or ``calib_batches``),
-    composed with the collapsed tail when ``fused`` and the model has one.
-    ``output_u8`` quantizes the output to uint8 on the device. The
-    returned function takes and returns NHWC tensors on the model's
-    device."""
-    fused = fused and hasattr(model, "tail")
+    ``fused`` collapses an affine tail (EDSR) and folds the output conv of
+    an activation-bearing one (SRResNet, SRGAN) through the last shuffle,
+    by :func:`tail_kind`; a model without a ``tail`` (ESPCN, SRCNN, VDSR,
+    DRCN), or ``fused=False``, runs the exact graph: ``fused`` is a hint.
+    ``quantize`` runs every conv as int8: ``True``/``"dynamic"`` with
+    per-sample activation scales on the exact graph; ``"static"`` with
+    scales calibrated on the first batch (or ``calib_batches``), composed
+    with the collapsed or folded tail when ``fused``. ``output_u8``
+    quantizes the output to uint8 on the device. The returned function
+    takes and returns NHWC tensors on the model's device. Every route
+    serves the model in eval mode (batch norms on their running
+    statistics, as ``train=False`` in the JAX package), so this puts
+    ``model`` in eval mode."""
+    model.eval()
+    kind = tail_kind(model) if fused else None
     if quantize:
         if quantize not in (True, "dynamic", "static"):
             raise ValueError(
                 f"quantize must be False/True/'dynamic'/'static', "
                 f"got {quantize!r}")
         mode = "static" if quantize == "static" else "dynamic"
-        if mode == "static" and fused:
-            return make_fused_tail_predict_quant(
-                model, calib_headroom=calib_headroom, output_u8=output_u8,
-                calib_batches=calib_batches)
-        return make_quantized_predict(model, mode,
-                                      calib_headroom=calib_headroom,
-                                      output_u8=output_u8,
-                                      calib_batches=calib_batches)
-    fn = make_fused_tail_predict(model) if fused else model
+        kw = dict(calib_headroom=calib_headroom, output_u8=output_u8,
+                  calib_batches=calib_batches)
+        if mode == "static" and kind == "affine":
+            return make_fused_tail_predict_quant(model, **kw)
+        if mode == "static" and kind == "folded":
+            return make_folded_tail_predict_quant(model, **kw)
+        return make_quantized_predict(model, mode, **kw)
+    fn = {"affine": make_fused_tail_predict,
+          "folded": make_folded_tail_predict}.get(kind, lambda m: m)(model)
     if output_u8:
         return lambda x: to_u8(fn(x))
     return fn
@@ -92,9 +115,7 @@ def _load(model_name: str, params_path: str, params_mtime: float,
                    num_channels=channels, dtype=dtype)
     model = spec.make_model(cfg)
     params, batch_stats = load_params(params_path)
-    if batch_stats is not None:
-        raise NotImplementedError(f"batch-norm models {_LATER}")
-    from_jax_params(model, params)
+    from_jax_params(model, params, batch_stats)
     model = model.to(device).eval()
     # a static predict keeps its calibration in the cached function, so
     # later requests reuse the first request's scales, as in sr.infer
@@ -129,8 +150,10 @@ def upscale(
 
     ``tile``: route images larger than this through exact halo-tiled
     inference (None = always full-image). ``fused``: use the collapsed
-    affine tail where the model has one (interior-identical, faster;
-    ``sr_torch/kernels/fused_tail.py``). ``quantize``: int8 convs
+    affine tail where the model has one (EDSR: interior-identical, faster;
+    ``sr_torch/kernels/fused_tail.py``), or the output conv folded through
+    the last shuffle (SRResNet, SRGAN: exact;
+    ``sr_torch/kernels/shuffle_fold.py``). ``quantize``: int8 convs
     (``sr_torch/quant.py``): ``True``/``"dynamic"`` or ``"static"``, which
     calibrates activation scales on the first image (the first chunk of
     tiles) and composes with ``fused=True``; ``calib_headroom`` multiplies

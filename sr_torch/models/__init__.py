@@ -1,5 +1,6 @@
 """The port's model zoo: importing this package registers every model spec
 (as ``sr/models/__init__.py`` does)."""
 
-from sr_torch.models import drcn, edsr, espcn, srcnn, vdsr  # noqa: F401
+from sr_torch.models import (  # noqa: F401
+    drcn, edsr, espcn, srcnn, srgan, srresnet, vdsr)
 from sr_torch.models.registry import ModelSpec, get_spec  # noqa: F401

@@ -99,7 +99,7 @@ class Net(nn.Module):
         h = self._body(_to_nchw(x))
         for up in self.upsample[:-1]:
             h = up(h)
-        return _to_nhwc(self.upsample[-1](h, shuffle=False))
+        return _to_nhwc(self.upsample[-1].preshuffle(h))
 
     def clone(self, dtype: torch.dtype) -> "Net":
         """A copy computing in ``dtype`` (flax's ``model.clone(dtype=...)``)."""

@@ -30,8 +30,14 @@ class ModelSpec:
     pre_upsample: bool = False  # feed bicubic-upscaled LR (SRCNN/VDSR/DRCN)
     default_channels: int = 1
     default_lr: float = 1e-3
-    is_gan: bool = False  # adversarial training (SRGAN): Trainer refuses
+    # adversarial training (SRGAN): sr_torch.train.gan.GANTrainer; the
+    # shared Trainer trains its generator on the content loss
+    is_gan: bool = False
+    # batch norms with running statistics (SRResNet, SRGAN): the
+    # pre-shuffle losses refuse them
     has_batchnorm: bool = False
+    # (SRConfig, torch.Generator | None) -> the discriminator (GAN recipes)
+    make_discriminator: Callable[..., Any] | None = None
     # optional pre-shuffle training (models whose tail ends in a pixel
     # shuffle): model → (apply_fn, r_last), where apply_fn(x) returns the
     # output before the last shuffle, (B, H·r/r_last, W·r/r_last,

@@ -1,38 +1,60 @@
-"""NN building blocks: ConvBlock, ResnetBlock, PSBlock.
+"""NN building blocks: ConvBlock, ResnetBlock, PSBlock, PReLU, BatchNorm.
 
-Port of ``sr/nn/blocks.py`` for the part of its menu that the port's
-models use: the ``relu`` and ``None`` activations, no norm, the kernel
-initializers of ``sr_torch/nn/init.py`` (``kernel_init``) and convs
-without bias (``use_bias=False``). Other activations and norms raise until
-their port slice lands.
+Port of ``sr/nn/blocks.py``: the activation menu (``relu``, ``prelu``,
+``lrelu`` with slope 0.2, ``tanh``, ``sigmoid``, ``None``), ``norm="batch"``
+with flax's BatchNorm semantics, the kernel initializers of
+``sr_torch/nn/init.py`` (``kernel_init``) and convs without bias
+(``use_bias=False``). ``norm="instance"`` belongs to no zoo model yet and
+raises until its first user lands.
 
 Blocks take and return NCHW-logical tensors in ``torch.channels_last``
 memory, which lays them out as NHWC, so ``x.permute(0, 2, 3, 1)`` hands the
 kernels an NHWC tensor without a copy. Parameters are float32; ``dtype`` is
-the compute dtype, as in the flax blocks. Each block names its convs
-``Conv_0``/``Conv_1`` like flax does, so a parameter's path reads the same
-in both packages.
+the compute dtype, as in the flax blocks. Each block names its submodules
+like flax does (``Conv_0``/``Conv_1``, ``_NormAct_0/BatchNorm_0``,
+``_NormAct_0/PReLU_0``, ``BatchNorm_0``), so a parameter's path reads the
+same in both packages.
 
-* ``ResnetBlock`` without grad calls :func:`fused_resblock` (the CUDA
-  kernel on the card, its plain version on the CPU). With grad on it runs
-  conv → ReLU → conv, ·res_scale, + x as separate differentiable ops, as
-  the JAX block does in training: the fused kernel, like the TPU kernel,
-  has no backward.
+* :class:`BatchNorm` is ``flax.linen.BatchNorm(momentum=0.9)``, which
+  ``torch.nn.BatchNorm2d`` is not: statistics in float32 whatever the
+  input's dtype, the variance as E[x²] − E[x]² clipped at 0, the running
+  variance updated with that (biased) batch variance, ``ra = 0.9·ra +
+  0.1·batch``, eps 1e-5, and the output cast to the block's dtype. Train
+  mode (``module.train()``) normalizes with the batch's statistics and
+  updates the running ones, unless :func:`frozen_batch_stats` is active;
+  eval mode uses the running ones. Parameters ``scale``/``bias`` and
+  buffers ``mean``/``var`` carry flax's names.
+* :class:`PReLU` has one shared slope (flax param ``slope``, 0.25 at
+  init), applied as ``where(x >= 0, x, x·a)`` in x's dtype.
+* ``ResnetBlock`` with ``act='relu'`` and no norm (EDSR's) calls
+  :func:`fused_resblock` without grad (the CUDA kernel on the card, its
+  plain version on the CPU); with grad on, or any other activation or a
+  norm (SRResNet's conv-BN-PReLU-conv-BN), it runs its convs and the norm
+  as separate differentiable ops, as the JAX block does: the fused kernel
+  computes conv → ReLU → conv only.
 * ``PSBlock`` runs its conv without the bias and hands the bias to
   :func:`depth_to_space`, which adds it as it shuffles (and differentiates
-  through it under grad); under an interceptor the intercepted conv keeps
-  its bias and the shuffle gets none. ``shuffle=False`` returns the conv's
-  output before the shuffle, for the pre-shuffle training forwards.
+  through it under grad); a ReLU without norm runs in the kernel too,
+  anything else (SRResNet's PReLU) after the shuffle, in flax's order.
+  Under an interceptor the intercepted conv keeps its bias and the shuffle
+  gets none. :meth:`PSBlock.preshuffle` returns the output before the
+  shuffle (the conv, then the activation where it commutes with the
+  shuffle), for the pre-shuffle training forwards and the folded serving
+  tails.
 * Other convs are ``F.conv2d``: the JAX package left them to XLA, outside
   any Pallas kernel.
 * Every conv goes through :func:`_apply_conv`, which first offers it to the
   active interceptor (``sr_torch/nn/intercept.py``), as flax's
   ``intercept_methods`` sees each ``nn.Conv`` call of the JAX blocks. While
   one is active, ``ResnetBlock`` runs its two convs one by one, so int8
-  serving and calibration see every conv.
+  serving and calibration see every conv. Norms and activations stay float
+  between the int8 sites, as in ``sr.quant``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -45,13 +67,114 @@ from sr_torch.nn import intercept
 from sr_torch.nn.init import get_kernel_init
 
 _LATER = "lands in a later port slice"
+_ACTS = (None, "none", "relu", "prelu", "lrelu", "tanh", "sigmoid")
+
+_STATS_FROZEN: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "sr_torch_batch_stats_frozen", default=False)
 
 
 def _check_menu(act, norm) -> None:
-    if act not in (None, "none", "relu"):
-        raise NotImplementedError(f"activation {act!r} {_LATER}")
-    if norm is not None:
-        raise NotImplementedError(f"norm {norm!r} {_LATER}")
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}; the menu is {_ACTS}")
+    if norm == "instance":
+        raise NotImplementedError(
+            f"norm 'instance' {_LATER}, with its first zoo model")
+    if norm not in (None, "batch"):
+        raise ValueError(f"unknown norm {norm!r} (None | 'batch')")
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Train-mode batch norms inside normalize with the batch's statistics
+    but leave their running statistics as they were: flax's train-mode
+    ``apply`` whose mutated ``batch_stats`` the caller discards (the GAN
+    step's detached fake and its adversarial D pass)."""
+    token = _STATS_FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _STATS_FROZEN.reset(token)
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU with one shared slope (sr/nn/blocks.py:PReLU)."""
+
+    def __init__(self, init_slope: float = 0.25):
+        super().__init__()
+        self.slope = nn.Parameter(torch.tensor(init_slope,
+                                               dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, x * self.slope.to(x.dtype))
+
+
+class BatchNorm(nn.Module):
+    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
+    axis of an NCHW-logical tensor; see the module docstring."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            # flax's _compute_stats: float32, E[x²] − E[x]², clipped at 0
+            x32 = x.to(torch.float32)
+            mean = x32.mean((0, 2, 3))
+            var = torch.clamp_min(x32.square().mean((0, 2, 3))
+                                  - mean.square(), 0.0)
+            if not _STATS_FROZEN.get():
+                m = self.momentum
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        # flax's _normalize: (x − mean) · (rsqrt(var + eps) · scale) + bias
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+        return (y + self.bias.view(1, -1, 1, 1)).to(self.dtype)
+
+
+def _activate(act: str | None, x: torch.Tensor) -> torch.Tensor:
+    if act == "relu":
+        return torch.relu(x)
+    if act == "lrelu":
+        return F.leaky_relu(x, 0.2)
+    if act == "tanh":
+        return torch.tanh(x)
+    if act == "sigmoid":
+        return torch.sigmoid(x)
+    return x
+
+
+class _NormAct(nn.Module):
+    """[norm] → [act], the tail every flax block shares
+    (sr/nn/blocks.py:_NormAct); PReLU is a module with its slope."""
+
+    def __init__(self, features: int, norm: str | None, act: str | None,
+                 dtype: torch.dtype):
+        super().__init__()
+        _check_menu(act, norm)
+        self.norm, self.act, self.dtype = norm, act, dtype
+        if norm == "batch":
+            self.BatchNorm_0 = BatchNorm(features, dtype=dtype)
+        if act == "prelu":
+            self.PReLU_0 = PReLU()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm == "batch":
+            x = self.BatchNorm_0(x)
+        if self.act == "prelu":
+            return self.PReLU_0(x)
+        return _activate(self.act, x)
 
 
 def _conv(in_features: int, features: int, kernel_size: int, stride: int,
@@ -97,7 +220,8 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBlock(nn.Module):
-    """Conv → [act]. (sr/nn/blocks.py:ConvBlock)"""
+    """Conv → [norm] → [act]. (sr/nn/blocks.py:ConvBlock; a stride-s conv
+    pads k//2 on both sides, flax's explicit pair)"""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, act: str | None = "relu",
@@ -111,29 +235,36 @@ class ConvBlock(nn.Module):
         self.dtype = dtype
         self.Conv_0 = _conv(in_features, features, kernel_size, stride,
                             use_bias, generator, kernel_init)
+        self._NormAct_0 = _NormAct(features, norm, act, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _apply_conv(self.Conv_0, x, self.dtype)
-        return torch.relu(y) if self.act == "relu" else y
+        return self._NormAct_0(_apply_conv(self.Conv_0, x, self.dtype))
 
 
 class ResnetBlock(nn.Module):
-    """conv → relu → conv, + residual·res_scale. (sr/nn/blocks.py:ResnetBlock
-    with ``norm=None``, ``act='relu'``, EDSR's body block)"""
+    """conv → [norm] → act → conv → [norm], + residual·res_scale.
+    (sr/nn/blocks.py:ResnetBlock: EDSR's conv-ReLU-conv, SRResNet's
+    conv-BN-PReLU-conv-BN)"""
 
     def __init__(self, features: int, kernel_size: int = 3,
                  act: str | None = "relu", norm: str | None = None,
-                 res_scale: float = 1.0, dtype: torch.dtype = torch.float32,
+                 res_scale: float = 1.0, kernel_init: str | None = None,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         _check_menu(act, norm)
-        if act != "relu" or kernel_size != 3:
-            raise NotImplementedError(
-                f"ResnetBlock(act={act!r}, kernel_size={kernel_size}) {_LATER}")
         self.res_scale = res_scale
         self.dtype = dtype
-        self.Conv_0 = _conv(features, features, 3, 1, True, generator)
-        self.Conv_1 = _conv(features, features, 3, 1, True, generator)
+        # the fused kernel's function: 3×3 conv → ReLU → conv, no norm
+        self.fused = act == "relu" and norm is None and kernel_size == 3
+        self.Conv_0 = _conv(features, features, kernel_size, 1, True,
+                            generator, kernel_init)
+        self._NormAct_0 = _NormAct(features, norm, act, dtype)
+        self.Conv_1 = _conv(features, features, kernel_size, 1, True,
+                            generator, kernel_init)
+        if norm == "batch":
+            self.BatchNorm_0 = BatchNorm(features, dtype=dtype)
+        self.norm = norm
         self._packed = None
         self._packed_key = None
 
@@ -142,7 +273,9 @@ class ResnetBlock(nn.Module):
         block's dtype on the weights' device: (9·C, C) operands, or for a
         bf16 block on a card the kernel's ``wgmma`` layout. Packed on first
         use and cached; packed again when a weight changes, moves or the
-        dtype changes."""
+        dtype changes. None for a block the kernel does not compute."""
+        if not self.fused:
+            return None
         weights = (self.Conv_0.weight, self.Conv_0.bias,
                    self.Conv_1.weight, self.Conv_1.bias)
         key = (self.dtype, weights[0].device, *(p._version for p in weights))
@@ -157,46 +290,60 @@ class ResnetBlock(nn.Module):
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if torch.is_grad_enabled() or intercept.active() is not None:
-            # conv → relu → conv, + residual (sr/nn/blocks.py:ResnetBlock):
-            # differentiable, and each conv a site for an interceptor
-            h = torch.relu(_apply_conv(self.Conv_0, x, self.dtype))
-            h = _apply_conv(self.Conv_1, h, self.dtype)
-            if self.res_scale != 1.0:
-                h = h * torch.tensor(self.res_scale, dtype=h.dtype)
-            return x + h
-        y = fused_resblock(_nhwc(x.to(self.dtype)), *self.packed(),
-                           res_scale=self.res_scale)
-        return y.permute(0, 3, 1, 2)
+        if (self.fused and not torch.is_grad_enabled()
+                and intercept.active() is None):
+            y = fused_resblock(_nhwc(x.to(self.dtype)), *self.packed(),
+                               res_scale=self.res_scale)
+            return y.permute(0, 3, 1, 2)
+        # conv → [norm] → act → conv → [norm], + residual
+        # (sr/nn/blocks.py:ResnetBlock): differentiable, and each conv a
+        # site for an interceptor
+        h = self._NormAct_0(_apply_conv(self.Conv_0, x, self.dtype))
+        h = _apply_conv(self.Conv_1, h, self.dtype)
+        if self.norm == "batch":
+            h = self.BatchNorm_0(h)
+        if self.res_scale != 1.0:
+            h = h * torch.tensor(self.res_scale, dtype=h.dtype)
+        return x + h
 
 
 class PSBlock(nn.Module):
-    """Conv to C·r² then pixel shuffle → [act]. (sr/nn/blocks.py:PSBlock)"""
+    """Conv to C·r² then pixel shuffle → [norm] → [act].
+    (sr/nn/blocks.py:PSBlock)"""
 
     def __init__(self, in_features: int, features: int, scale_factor: int = 2,
                  kernel_size: int = 3, act: str | None = "relu",
-                 norm: str | None = None, dtype: torch.dtype = torch.float32,
+                 norm: str | None = None, kernel_init: str | None = None,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         _check_menu(act, norm)
         self.scale_factor = scale_factor
         self.act = act
+        self.norm = norm
         self.dtype = dtype
         self.Conv_0 = _conv(in_features, features * scale_factor ** 2,
-                            kernel_size, 1, True, generator)
+                            kernel_size, 1, True, generator, kernel_init)
+        self._NormAct_0 = _NormAct(features, norm, act, dtype)
 
-    def forward(self, x: torch.Tensor, shuffle: bool = True) -> torch.Tensor:
-        if not shuffle:
-            # the pre-shuffle tap of the training-side fold: exact only when
-            # nothing follows the conv inside this block
-            if self.act == "relu":
-                raise ValueError("shuffle=False needs an act-free PSBlock")
-            return _apply_conv(self.Conv_0, x, self.dtype)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the shuffle adds the conv's bias as it loads the conv's output
         # (flax's arithmetic: the conv rounded to dtype, then + bias), unless
         # an interceptor ran the conv with its bias
         y, bias = _run_conv(self.Conv_0, x, self.dtype, add_bias=False)
-        # ReLU commutes with the shuffle, so the kernel applies it
-        act = "relu" if self.act == "relu" else None
-        return depth_to_space(_nhwc(y), self.scale_factor, act,
-                              bias).permute(0, 3, 1, 2)
+        # ReLU commutes with the shuffle, so the kernel applies it; a norm
+        # or another activation follows the shuffle
+        in_kernel = self.act == "relu" and self.norm is None
+        out = depth_to_space(_nhwc(y), self.scale_factor,
+                             "relu" if in_kernel else None,
+                             bias).permute(0, 3, 1, 2)
+        return out if in_kernel else self._NormAct_0(out)
+
+    def preshuffle(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's output before its shuffle, NCHW-logical: the conv
+        with its bias, then the activation, which commutes with the shuffle
+        (one shared PReLU slope, or ReLU); ``depth_to_space`` of this is
+        ``forward(x)``. A norm does not commute and raises."""
+        if self.norm is not None:
+            raise ValueError("a PSBlock with a norm has no pre-shuffle form")
+        return self._NormAct_0(_apply_conv(self.Conv_0, x, self.dtype))

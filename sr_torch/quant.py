@@ -22,6 +22,12 @@ every activation of an int8 forward is float32 whatever the model's dtype,
 as in the JAX package. Calibration runs the float graph in the model's
 dtype and records each conv's input before the conv casts it.
 
+Everything between the sites stays float, as in the JAX package: the
+activations, and a batch-norm model's norms (SRResNet, SRGAN), which
+serving runs in eval mode with their running statistics and in the
+model's dtype, so in a bfloat16 model the tensor after a norm is bfloat16
+and the next site returns bfloat16.
+
 Mechanism: ``sr_torch.nn.intercept`` offers each conv of the blocks to an
 interceptor, the counterpart of ``flax.linen.intercept_methods``. Grouped,
 strided, dilated or even-sized convs and deconvs belong to no port model
@@ -124,12 +130,13 @@ class _Int8Site:
     JAX package folds them into the executable at trace time): the int8
     HWIO kernel (and on the card its kernel packing), its per-output-channel
     scales, the float32 bias, and for a static site the activation scale
-    and the dequantize multiplier."""
+    and the dequantize multiplier. Built from a float HWIO ``kernel`` (k
+    odd, SAME padding) and its ``bias``, or from a conv with :meth:`of`."""
 
-    def __init__(self, conv: nn.Conv2d, static_scale=None):
-        _check_site(conv)
+    def __init__(self, kernel: torch.Tensor, bias: torch.Tensor | None,
+                 static_scale=None):
         with torch.no_grad():
-            kernel = conv.weight.detach().permute(2, 3, 1, 0)  # HWIO
+            kernel = kernel.detach()
             dev = kernel.device
             self.s_act = None  # dynamic
             if static_scale is not None and np.ndim(static_scale) == 1:
@@ -150,21 +157,30 @@ class _Int8Site:
                 # s_x * s_w; a folded per-channel scale leaves s_x = 1
                 self.dequant = (self.s_w if self.s_act.dim()
                                 else self.s_act * self.s_w)
-            self.bias = (None if conv.bias is None
-                         else conv.bias.detach().to(torch.float32))
+            self.bias = (None if bias is None
+                         else bias.detach().to(torch.float32))
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW-logical ``x`` (channels_last memory) → the conv's output
-        in ``x``'s dtype, laid out the same way."""
-        xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
+    @classmethod
+    def of(cls, conv: nn.Module, static_scale=None) -> "_Int8Site":
+        _check_site(conv)
+        return cls(conv.weight.permute(2, 3, 1, 0), conv.bias, static_scale)
+
+    def nhwc(self, xh: torch.Tensor) -> torch.Tensor:
+        """Contiguous float32 NHWC ``xh`` → the conv's float32 NHWC
+        output."""
         if self.s_act is not None:
             scale, dequant = self.s_act, self.dequant
         else:
             scale = activation_scale(xh)
             dequant = scale * self.s_w
-        y = conv_int8_fused(xh, self.q_w, scale, dequant, self.bias,
-                            packed=self.packed)
-        return y.to(x.dtype).permute(0, 3, 1, 2)
+        return conv_int8_fused(xh, self.q_w, scale, dequant, self.bias,
+                               packed=self.packed)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW-logical ``x`` (channels_last memory) → the conv's output
+        in ``x``'s dtype, laid out the same way."""
+        xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
+        return self.nhwc(xh).to(x.dtype).permute(0, 3, 1, 2)
 
 
 def int8_conv(x: torch.Tensor, conv: nn.Conv2d,
@@ -173,7 +189,7 @@ def int8_conv(x: torch.Tensor, conv: nn.Conv2d,
     rescale (``sr/quant.py:int8_conv``). ``static_scale``: a calibrated
     per-tensor float, or a per-input-channel ``(C,)`` vector folded into
     the weight quantization; ``None`` = dynamic per-sample scale."""
-    return _Int8Site(conv, static_scale)(x)
+    return _Int8Site.of(conv, static_scale)(x)
 
 
 def _sites(model: nn.Module,
@@ -181,7 +197,7 @@ def _sites(model: nn.Module,
     """Every conv's int8 operands; a site missing from ``scales`` (or all,
     for ``None``) runs with dynamic scales."""
     scales = scales or {}
-    return {conv: _Int8Site(conv, scales.get(key))
+    return {conv: _Int8Site.of(conv, scales.get(key))
             for conv, key in site_keys(model).items()}
 
 
@@ -189,9 +205,14 @@ def _run_sites(model, sites, x, method=None):
     """``model(x)`` or ``getattr(model, method)(x)`` with each conv
     running through its int8 site."""
     fn = model if method is None else getattr(model, method)
-    with torch.inference_mode(), intercept_convs(
-            lambda conv, inp: sites[conv](inp)):
+    with torch.inference_mode(), int8_sites(sites):
         return fn(x)
+
+
+def int8_sites(sites: dict):
+    """Inside ``with``, every conv of the blocks runs through its site of
+    ``sites``."""
+    return intercept_convs(lambda conv, inp: sites[conv](inp))
 
 
 def quantized_apply(model: nn.Module, x: torch.Tensor,

@@ -1,8 +1,10 @@
 """Minimal HTTP serving endpoint for trained SR models (model mode).
 
 Port of ``sr/serve.py``'s model mode: ``--model_name --params`` serves any
-input size through :func:`sr_torch.infer.upscale` (fused tail, halo
-tiling, int8 with ``--quantize``) on ``--device`` (the card by default).
+input size through :func:`sr_torch.infer.upscale` (fused or folded tail,
+halo tiling, int8 with ``--quantize``) on ``--device`` (the card by
+default). A batch-norm model's ``.npz`` (SRResNet, SRGAN's generator)
+carries its running statistics, which it serves with.
 Artifact mode and its micro-batcher land with the export slice.
 
 Endpoints:
@@ -21,6 +23,7 @@ Usage:
   python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --quantize static
   python -m sr_torch.serve --model_name ESPCN --params ESPCN_params.npz
   python -m sr_torch.serve --model_name VDSR --params VDSR_params.npz --quantize dynamic
+  python -m sr_torch.serve --model_name SRGAN --params SRGAN_params.npz --quantize static
 """
 
 from __future__ import annotations

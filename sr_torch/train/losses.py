@@ -1,10 +1,10 @@
 """Loss functions of the training slice, computed in float32.
 
 Port of ``sr/train/losses.py`` for the losses the port's models use: MSE,
-L1 (EDSR), Charbonnier (LapSRN) and DRCN's recursive supervision. Each
-casts its arguments to float32 before it subtracts, as the JAX functions
-do, and reduces by the mean over all elements. SRGAN's BCE comes with
-SRGAN.
+L1 (EDSR), Charbonnier (LapSRN), DRCN's recursive supervision and SRGAN's
+binary cross-entropy on logits. Each casts its arguments to float32 before
+it computes, as the JAX functions do, and reduces by the mean over all
+elements.
 """
 
 from __future__ import annotations
@@ -46,3 +46,14 @@ def recursive_supervision_loss(recursions: torch.Tensor, final: torch.Tensor,
     a = np.float32(alpha)
     loss = float(a) * loss1 + float(np.float32(1.0) - a) * loss2
     return loss, {"loss_rec": loss1, "loss_final": loss2}
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """Binary cross-entropy on logits in float32, the stable form
+    ``max(z, 0) − z·y + log1p(exp(−|z|))`` that ``sr/train/losses.py``
+    computes (the discriminator returns logits; the sigmoid lives here)."""
+    z = logits.to(torch.float32)
+    y = labels.to(torch.float32)
+    return torch.mean(torch.clamp_min(z, 0) - z * y
+                      + torch.log1p(torch.exp(-torch.abs(z))))

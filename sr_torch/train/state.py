@@ -5,7 +5,10 @@ params, optimizer state, step and PRNG key; here the model holds its
 parameters, the optimizer its moments, and the state adds the recipe
 (which carries the schedule), the number of updates made and the sampler's
 generator, whose position :class:`sr_torch.utils.checkpoint.Checkpointer`
-saves. Batch statistics join with the first batch-norm model.
+saves. A batch-norm model's running statistics are buffers of the model,
+updated by its train-mode forwards and saved with its state dict;
+:attr:`TrainState.batch_stats` reads them in flax's layout. A GAN's
+discriminator state has no sampler (``generator=None``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from sr_torch.train.optim import Recipe
+from sr_torch.utils.interop import to_jax_batch_stats
 
 
 @dataclass
@@ -23,5 +27,11 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     tx: Recipe
-    generator: torch.Generator
+    generator: torch.Generator | None
     step: int = 0
+
+    @property
+    def batch_stats(self) -> dict | None:
+        """The model's batch-norm statistics as flax's nested
+        ``batch_stats`` (numpy copies); None without batch norms."""
+        return to_jax_batch_stats(self.model)

@@ -1,11 +1,13 @@
 """One shared trainer for the port's models.
 
 Port of ``sr/train/trainer.py`` for one device. A :class:`Trainer` reads a
-``ModelSpec`` (``sr_torch/models/registry.py``) and runs any non-GAN model:
-the train step (forward, loss in float32, backward, the recipe's optimizer
-update at its per-step learning rate), K steps per dispatch with the
-batches drawn on the device, an eval-mode predict, and the epoch loop with
-full-state checkpoints and exact resume.
+``ModelSpec`` (``sr_torch/models/registry.py``) and runs any model (for a
+GAN spec, SRGAN, it trains the generator on the spec's content loss, as
+the JAX ``Trainer`` does; ``sr_torch/train/gan.py`` runs the adversarial
+recipe): the train step (forward, loss in float32, backward, the recipe's
+optimizer update at its per-step learning rate), K steps per dispatch with
+the batches drawn on the device, an eval-mode predict, and the epoch loop
+with full-state checkpoints and exact resume.
 
 Where the JAX trainer compiles K steps into one ``lax.scan`` program, the
 port queues them eagerly: nothing in a step waits for the device (the
@@ -16,9 +18,13 @@ the host runs ahead and reads the averaged metrics once per dispatch.
 Training runs the convs through cuDNN and the pixel shuffle through its
 kernel (with the plain backward of ``sr_torch/kernels/depth_to_space.py``);
 ``predict`` runs without grad in eval mode, so EDSR's body takes the fused
-resblock kernel and DRCN returns its ensemble only. A recipe's gradient
-clip (VDSR) reports its scale as the ``clip_scale`` metric. Entry points run on ``device="cuda"`` unless the caller asks for
-the CPU. Multi-GPU data parallelism (``mesh_shape``) lands with Queue A 10.
+resblock kernel, DRCN returns its ensemble only and batch norms
+(SRResNet) use their running statistics. A train step's forward runs in
+train mode: batch norms normalize with the batch's statistics and update
+their running ones, once a step. A recipe's gradient clip (VDSR) reports
+its scale as the ``clip_scale`` metric. Entry points run on
+``device="cuda"`` unless the caller asks for the CPU. Multi-GPU data
+parallelism (``mesh_shape``) lands with Queue A 10.
 """
 
 from __future__ import annotations
@@ -49,10 +55,6 @@ class Trainer:
                 f"mesh_shape {cfg.mesh_shape}: multi-GPU training lands in a "
                 "later port slice (ROADMAP Queue A 10); the port trains on "
                 "one device")
-        if self.spec.is_gan:
-            raise NotImplementedError(
-                f"{self.spec.name}: adversarial training lands with SRGAN in "
-                "a later port slice; Trainer runs non-GAN models")
         self.device = resolve_device(device)
         self._in_key = self.spec.input_key()
         # pre-shuffle loss (cfg.preshuffle_loss): the same refusals as the

@@ -3,10 +3,10 @@
 Port of ``sr/utils/checkpoint.py``.
 
 * :class:`Checkpointer` keeps the last k full-state checkpoints of a run
-  (model and optimizer state dicts, the update count and the sampler
-  generator's state) in the port's own format, one ``torch.save`` file per
-  step, written to a temporary name and renamed, so a crash never leaves a
-  torn checkpoint. It checks :func:`run_meta` before a resume, with the
+  (model and optimizer state dicts, batch statistics included, the update
+  count and the sampler generator's state) in the port's own format, one
+  ``torch.save`` file per step, written to a temporary name and renamed,
+  so a crash never leaves a torn checkpoint. It checks :func:`run_meta` before a resume, with the
   JAX package's keys and refusals. The JAX package's Orbax checkpoints are
   neither needed nor readable here.
 * :func:`save_params`/:func:`load_params` write and read the params-only
@@ -108,7 +108,8 @@ class Checkpointer:
         tree = {"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "step": state.step,
-                "generator": state.generator.get_state()}
+                "generator": (None if state.generator is None
+                              else state.generator.get_state())}
         path = self._path(step)
         tmp = path + f".{os.getpid()}.tmp"
         torch.save(tree, tmp)
@@ -128,7 +129,8 @@ class Checkpointer:
                           weights_only=True)
         like.model.load_state_dict(tree["model"])
         like.optimizer.load_state_dict(tree["optimizer"])
-        like.generator.set_state(tree["generator"])
+        if like.generator is not None:
+            like.generator.set_state(tree["generator"])
         like.step = int(tree["step"])
         return like
 
@@ -143,10 +145,12 @@ def _flatten(tree: dict, prefix: tuple) -> dict[str, np.ndarray]:
     return flat
 
 
-def save_params(path: str, params: Any) -> None:
-    """Write the nested ``params`` dict as a flat .npz (batch-norm
-    statistics join with the models that have them)."""
+def save_params(path: str, params: Any, batch_stats: Any = None) -> None:
+    """Write the nested ``params`` dict, and a batch-norm model's
+    ``batch_stats``, as a flat .npz."""
     flat = _flatten(params, ("params",))
+    if batch_stats is not None:
+        flat.update(_flatten(batch_stats, ("batch_stats",)))
     tmp = path + ".tmp.npz"
     np.savez(tmp, **flat)
     os.replace(tmp, path)

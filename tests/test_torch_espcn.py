@@ -138,8 +138,9 @@ def test_registry_sees_every_port_model():
     model = spec.make_model(cfg)
     apply_fn, r = spec.preshuffle_train(model)
     assert r == 4
+    assert get_spec("SRResNet").name == "SRResNet"  # since its slice
     with pytest.raises(KeyError, match="later port slice"):
-        get_spec("SRResNet")
+        get_spec("LapSRN")
 
 
 # ----------------------------------------------------------- training ----
