@@ -145,6 +145,36 @@ Phases; any failure raises and exits non-zero without the final line:
    images/s. Each path's counts are zeroed just before it and read just
    after.
 
+12. FSRCNN and LapSRN ×4 on Y at full width (FSRCNN 56/12/4 with its 9×9
+   stride-4 deconv; LapSRN 64 filters × 5 convs a level, two levels, 4×4
+   stride-2 deconvs): (a) the fused int8 entry at every int8 site shape
+   (the 1×1 shrink and expand among them, and each deconv's phase-packed
+   3×3 conv of s²·N outputs) and the f32 shuffle at every int8-deconv
+   shape, for a 96×80 image whole and a 360×300 one in halo tiles, each
+   exact against its plain version and timed as in phase 3 (library time
+   cuDNN's bf16 conv, or ``F.conv_transpose2d`` of the deconv), each row
+   with the launches of its shape on its path; per model (c) training
+   (bf16, crop 64, b32, the synthetic corpus's Y): f32 step card vs CPU
+   (loss, gradients, the first Adam update at each group's rate: FSRCNN's
+   deconv at 1e-4, its base at 1e-3), two K-step dispatches after which a
+   probe batch's loss (each of LapSRN's levels) has fallen, no port kernel
+   launched, a checkpoint that restores exactly, then a LapSRN dispatch
+   from the procedural train split's first 32 images; (b) serving through
+   ``upscale`` (bf16, f32, int8 static and dynamic) with per-forward
+   launches (7 / 13 int8 convs, no shuffle), f32 card vs CPU and tiled vs
+   whole ≤ 1 u8 level, chroma == ``resize_bicubic_u8``, int8 vs f32
+   interior mean ≤ 4; the int8 deconv route
+   (``make_quantized_predict(quantize_deconv=True)``, 8 int8 convs and 1
+   shuffle a forward for FSRCNN, 17 and 4 for LapSRN) on the same images,
+   card == CPU bit for bit; (d) LapSRN's ×2 level (``net_scale=4``) equal
+   to level 0 of its ``all_scales`` forward, card vs CPU ≤ 1 level,
+   ``sr.infer``'s refusals, and the HTTP server with ``net_scale``; (e)
+   ``evaluate(channels=1)`` on the synthetic set and 8 procedural 384²
+   images, device metrics within 1e-4 dB / 1e-5 SSIM of the host's,
+   images/s; (f) MP/s at b16 128² → 512² on Y by route (bf16 exact, int8
+   static, int8 static with quantize_deconv, int8 dynamic), reported. Each
+   path's counts are zeroed just before it and read just after.
+
 It prints the bench's JSON line, a ``{"kernels": [...]}`` JSON line, then
 the card line, then as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -3335,6 +3365,700 @@ def phase_srresnet(card: str) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------------
+# phase 12: FSRCNN and LapSRN ×4 on Y
+# ----------------------------------------------------------------------
+
+#: the Y images served in (b), (H, W): the first whole, the second in halo
+#: tiles at upscale's tile 256 (FSRCNN halo 12, LapSRN 32)
+LAP_IMAGES = ((96, 80), (360, 300))
+#: each model's int8 sites by kind: (name, C, N, k, the site's size over
+#: the LR input's, sites a forward, a phase-packed deconv (its stride) or
+#: None); the phase sites run only with quantize_deconv
+LAP_INT8 = {
+    "FSRCNN": (("feature 5x5", 1, 56, 5, 1, 1, None),
+               ("shrink 1x1", 56, 12, 1, 1, 1, None),
+               ("map 3x3 x4", 12, 12, 3, 1, 4, None),
+               ("expand 1x1", 12, 56, 1, 1, 1, None),
+               ("deconv 9x9 s4 phase conv", 56, 16, 3, 1, 1, 4)),
+    "LapSRN": (("head", 1, 64, 3, 1, 1, None),
+               ("level 1 features x5", 64, 64, 3, 1, 5, None),
+               ("level 1 residual", 64, 1, 3, 2, 1, None),
+               ("level 2 features x5", 64, 64, 3, 2, 5, None),
+               ("level 2 residual", 64, 1, 3, 4, 1, None),
+               ("level 1 feature deconv phase conv", 64, 256, 3, 1, 1, 2),
+               ("level 1 image deconv phase conv", 1, 4, 3, 1, 1, 2),
+               ("level 2 feature deconv phase conv", 64, 256, 3, 2, 1, 2),
+               ("level 2 image deconv phase conv", 1, 4, 3, 2, 1, 2)),
+}
+#: the f32 shuffles of the int8 deconvs: (name, C·r², r, size over the LR
+#: input's)
+LAP_D2S = {"FSRCNN": (("deconv 9x9 s4", 16, 4, 1),),
+           "LapSRN": (("level 1 feature deconv", 256, 2, 1),
+                      ("level 1 image deconv", 4, 2, 1),
+                      ("level 2 feature deconv", 256, 2, 2),
+                      ("level 2 image deconv", 4, 2, 2))}
+#: the routes served through upscale (name, dtype, quantize); the int8
+#: deconv route runs through make_quantized_predict(quantize_deconv=True)
+LAP_ROUTES = (("bf16", "bfloat16", False),
+              ("f32", "float32", False),
+              ("int8 static", "bfloat16", "static"),
+              ("int8 dynamic", "bfloat16", "dynamic"))
+#: per forward (fused int8 convs, shuffles): default int8, quantize_deconv
+LAP_PER_FWD = {"FSRCNN": ((7, 0), (8, 1)), "LapSRN": ((13, 0), (17, 4))}
+LAP_K = {"FSRCNN": 100, "LapSRN": 40}  # steps a train dispatch
+#: the procedural train split's images used at crop 64 (of the 512 that
+#: get_training_set('procedural') generates: about 0.25 s of host work an
+#: image, so the run takes the first 32)
+LAP_PROCEDURAL = 32
+
+
+def _lap_forward_shape(name: str, hw) -> tuple:
+    """The (B, H, W) batch that ``upscale`` hands ``name``'s net for a Y
+    image of ``hw``: whole, or its halo tiles in one call."""
+    from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
+
+    seen = []
+
+    def record(t):
+        seen.append(tuple(t.shape[:3]))
+        return t.new_zeros((t.shape[0], 4 * t.shape[1], 4 * t.shape[2], 1))
+
+    tiled_predict(record, torch.zeros((1, *hw, 1)), 4, tile=256,
+                  halo=RECEPTIVE_FIELD[name.lower()])
+    check(len(seen) == 1, f"{name} serving of {hw} takes {len(seen)} calls")
+    return seen[0]
+
+
+def _lap_int8_row(card: str, gen, model: str, site: str, shape, n: int,
+                  k: int, stride) -> dict:
+    """The fused int8 entry at one site's shape: bit for bit against its
+    plain version (:func:`_int8_exact`), its time, the plain version's and
+    the library's (cuDNN's bf16 conv at a conv site; at a phase-packed
+    deconv site cuDNN's bf16 ``F.conv_transpose2d`` of the deconv it
+    computes, which includes the shuffle), beside the bound: the bytes the
+    fused entry moves (f32 in and out, int8 weights) or the deconv's own
+    operations (k_d²·C·N_d a pixel, the phase kernel's zero taps left out),
+    whichever is larger. Returns the kernels-line row."""
+    from sr_torch.kernels.int8_conv import (
+        conv_int8_fused, conv_int8_fused_plain)
+
+    b, h, w, c = shape
+    (x, q_w, packed, scale, dequant, bias, q_x), err = _int8_exact(
+        gen, f"{model} {site}", shape, n, k)
+    del q_x
+    t_k = kernel_ms(lambda: conv_int8_fused(x, q_w, scale, dequant, bias,
+                                            packed=packed))
+    big = b * h * w * (c + n) > 2e8
+    t_p = kernel_ms(lambda: conv_int8_fused_plain(x, q_w, scale, dequant,
+                                                  bias),
+                    **(dict(n=2, reps=2, warmup=1) if big else {}))
+    xb = x.permute(0, 3, 1, 2).bfloat16()
+    if stride is None:
+        kb = q_w.permute(3, 2, 0, 1).bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        t_c = kernel_ms(lambda: F.conv2d(xb, kb, padding=k // 2))
+        library, macs = "cuDNN bf16 conv", k * k * c * n
+    else:
+        from sr_torch.nn.blocks import deconv_padding
+
+        kd = {2: 4, 4: 9}[stride]
+        nd = n // (stride * stride)
+        p, op = deconv_padding(kd, stride)
+        wd = torch.randn((c, nd, kd, kd), device="cuda", generator=gen
+                         ).bfloat16()
+        t_c = kernel_ms(lambda: F.conv_transpose2d(
+            xb, wd, stride=stride, padding=p, output_padding=op))
+        library = "cuDNN bf16 conv_transpose2d (the deconv, shuffle included)"
+        macs = kd * kd * c * nd
+    del xb, x
+    ops = 2 * b * h * w * macs
+    t_ops = ops / PEAK_FLOPS[torch.int8] * 1e3
+    nbytes = 4 * b * h * w * c + k * k * c * n + 4 * b * h * w * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+    print(f"[12] int8_conv {model} {site} {(b, h, w, c)}->{n} k={k}: fused "
+          f"kernel {t_k:.4f} ms (bound {bound:.4f} ms, {by}; ops "
+          f"{t_ops:.4f}, bytes {t_bytes:.4f}), plain {t_p:.4f} ms, "
+          f"{library} {t_c:.4f} ms; == plain | {card}")
+    return dict(
+        name="int8_conv", route="cuda",
+        source="sr_torch/kernels/csrc/int8_conv.cu",
+        replaces="sr/kernels/int8_conv.py:75", launches=None,
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by=by,
+        library_ms=t_c, library=library, shape=[b, h, w, c, n, k],
+        dtype="f32 -> int8 -> f32 (fused entry)",
+        path=f"{model} int8 serving, {site}")
+
+
+def _lap_kernel_rows(card: str) -> list[dict]:
+    """(a) The fused int8 entry at every int8 site shape and the shuffle at
+    every int8-deconv shape that ``upscale`` and the quantize_deconv route
+    give FSRCNN and LapSRN for the two images, each exact against its plain
+    version and timed; launches are filled in from the serving tallies."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for model in LAP_INT8:
+        for hw in LAP_IMAGES:
+            b, h, w = _lap_forward_shape(model, hw)
+            image = f"{hw[0]}x{hw[1]} image"
+            for site, c, n, k, f, _, stride in LAP_INT8[model]:
+                row = _lap_int8_row(card, gen, model, f"{site}, {image}",
+                                    (b, f * h, f * w, c), n, k, stride)
+                row["model"] = model
+                rows.append(row)
+            for site, cin, r, f in LAP_D2S[model]:
+                row = _d2s_row(card, gen, (b, f * h, f * w, cin), r,
+                               torch.float32, tag="[12]",
+                               path=f"{model} int8 deconv (quantize_deconv),"
+                                    f" {site}, {image}")
+                row["model"] = model
+                rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _lap_step_card_vs_cpu(name: str, cfg, batch) -> None:
+    """One f32 step on the card (TF32 off) against the CPU's from the same
+    weights and batch: the loss (and LapSRN's level losses) within 1e-5
+    relative, every gradient within 1e-3 of its largest entry; every Adam
+    update whose CPU gradient exceeds 1e-2 of its tensor's largest keeps
+    the CPU's sign and lies within 1e-2·lr of the CPU's update (phase
+    11's check); and the group's rate: Adam's first update is
+    lr·g/(|g| + 1e-8), so every entry whose gradient is at least 2e-6
+    (ε moves it by under 0.5%) moves by lr within 1e-2·lr, lr its group's:
+    1e-4 for FSRCNN's deconv tail, 1e-3 for its base."""
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.precision import no_tf32
+
+    cfg32 = cfg.replace(dtype="float32")
+    res = []
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg32, device=device)
+        st = tr.init_state(5)
+        p0 = {n: p.detach().float().cpu().clone()
+              for n, p in st.model.named_parameters()}
+        with no_tf32():
+            _, m = tr.train_step(st, {k: v.to(device)
+                                      for k, v in batch.items()})
+        res.append(({k: float(v) for k, v in m.items()}, _grads(st.model),
+                    {n: p.detach().float().cpu() - p0[n]
+                     for n, p in st.model.named_parameters()},
+                    {n: g["lr"] for g in st.optimizer.param_groups
+                     for n, p in st.model.named_parameters()
+                     if any(p is q for q in g["params"])}))
+    (m_card, g_card, u_card, lr_of), (m_cpu, g_cpu, u_cpu, _) = res
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    worst_g = max((float((g_card[n] - g).abs().max() / g.abs().max()), n)
+                  for n, g in g_cpu.items())
+    flips, worst_u, worst_r, held, rated = 0, (0.0, ""), (0.0, ""), 0, 0
+    for n, g in g_cpu.items():
+        lr = lr_of[n]
+        sure = g.abs() > 1e-2 * g.abs().max()
+        held += int(sure.sum())
+        flips += int((torch.sign(u_card[n]) != torch.sign(u_cpu[n]))[sure]
+                     .sum())
+        worst_u = max(worst_u, (float((u_card[n] - u_cpu[n])[sure].abs()
+                                      .max()) / lr, n))
+        big = g.abs() >= 2e-6
+        rated += int(big.sum())
+        if big.any():
+            worst_r = max(worst_r, (float((u_card[n].abs() - lr)[big].abs()
+                                          .max()) / lr, n))
+    rates = sorted(set(lr_of.values()))
+    print(f"[12] f32 {name} train step, card vs CPU (TF32 off): metrics "
+          f"{m_card} vs {m_cpu} (worst rel {loss_err:.2e}, tol 1e-5); worst "
+          f"gradient {worst_g} (tol 1e-3); first Adam updates: {flips} of "
+          f"{held} signs differ (tol 0), worst card vs CPU {worst_u} of lr "
+          f"(tol 1e-2); at rates {rates}, {rated} entries with |g| >= 2e-6 "
+          f"move by their group's lr within {worst_r} of it (tol 1e-2)")
+    check(loss_err <= 1e-5 and worst_g[0] <= 1e-3 and flips == 0
+          and worst_u[0] <= 1e-2 and worst_r[0] <= 1e-2 and held > 0
+          and rated > 0,
+          f"the card's f32 {name} step differs from the CPU's")
+    if name == "FSRCNN":
+        check(rates == [1e-4, 1e-3] and all(
+            lr_of[n] == (1e-4 if n.startswith("DeconvBlock") else 1e-3)
+            for n in lr_of), f"FSRCNN's groups train at {lr_of}")
+
+
+def _lap_train(card: str, name: str, images, proc_images):
+    """(c) ``name`` ×4 trains in bf16 at crop 64 b32 from the synthetic
+    corpus's Y plane in a 'matrix' PatchPipeline on the card: the f32 step
+    card vs CPU, then the train path with its counts zeroed just before and
+    read just after (cuDNN only: no port kernel may run): two K-step
+    dispatches, after which a fixed probe batch's loss (LapSRN: each
+    level's) has fallen; a checkpoint (FSRCNN's two-group Adam) that
+    restores exactly; for LapSRN then one K-step dispatch from the
+    procedural train split's first 32 images. Returns the trainer and
+    state."""
+    import tempfile
+
+    from sr_torch.data.pipeline import PatchPipeline
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.checkpoint import Checkpointer, run_meta
+    from sr_torch.utils.config import SRConfig
+
+    k = LAP_K[name]
+    cfg = SRConfig(model_name=name, num_channels=1, scale_factor=4,
+                   crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH,
+                   dtype="bfloat16")
+    pipe = PatchPipeline(images, crop_size=TRAIN_CROP, scale_factor=4,
+                         batch_size=TRAIN_BATCH, channels=1)
+    batch = pipe(torch.Generator(device="cuda").manual_seed(9))
+    _lap_step_card_vs_cpu(name, cfg, {key: v[:2] for key, v in batch.items()})
+    tr = Trainer(cfg)
+    state = tr.init_state(1)
+    multi = tr.make_multi_step(pipe, k)
+    probe = pipe(torch.Generator(device="cuda").manual_seed(11))
+
+    def probe_losses() -> dict:
+        state.model.train()  # LapSRN's levels feed its loss
+        with torch.no_grad():
+            loss, m = tr.loss_fn(state.model, probe, 0)
+        return {"loss": float(loss), **{n: float(v) for n, v in m.items()}}
+
+    before = probe_losses()
+    print(f"[12] {name} x4 train: {tr.num_params(state)} params, bf16, crop "
+          f"{TRAIN_CROP} b{TRAIN_BATCH}, Adam {tr.cfg.effective_lr:g} "
+          f"(groups {[(g.get('group'), g['lr']) for g in state.optimizer.param_groups]})")
+
+    # ---- the train path: counts zeroed just before, read just after ----
+    fns = _zero_counts()
+    times, metrics = [], []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = multi(state)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({n: round(float(v), 6) for n, v in m.items()})
+    launches = {n: fn.launches for n, fn in fns.items()}
+    after = probe_losses()
+    print(f"[12] {name} two K={k} dispatches: {times[0]:.1f} / {times[1]:.1f}"
+          f" ms ({k / times[1] * 1e3:.1f} steps/s in the second, one "
+          f"dispatch, not a marginal), mean metrics {metrics[0]} then "
+          f"{metrics[1]}; probe {before} -> {after}; launches {launches} "
+          f"| {card}")
+    check(all(v == 0 for v in launches.values()),
+          f"the {name} train path launched a port kernel: {launches}")
+    check(all(after[n] < before[n] for n in before)
+          and (name != "LapSRN" or {"loss_x2", "loss_x4"} <= set(after)),
+          f"a {name} loss did not fall: {before} -> {after}")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix=f"{name.lower()}_ckpt_", dir=out_dir)
+    ckpt = Checkpointer(ckpt_dir, meta=run_meta(cfg))
+    ckpt.save(state)
+    restored = ckpt.restore(tr.init_state(99))
+    check(_same_train_state(restored, state) and restored.step == 2 * k
+          and [g["lr"] for g in restored.optimizer.param_groups]
+          == [g["lr"] for g in state.optimizer.param_groups],
+          f"the {name} checkpoint did not restore the trained state")
+    print(f"[12] {name} checkpoint at step {state.step} restores params, "
+          f"Adam ({len(state.optimizer.param_groups)} groups), step and "
+          "sampler exactly")
+    shutil.rmtree(ckpt_dir)
+    if proc_images is not None:
+        ppipe = PatchPipeline(proc_images, crop_size=TRAIN_CROP,
+                              scale_factor=4, batch_size=TRAIN_BATCH,
+                              channels=1)
+        fns = _zero_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = tr.make_multi_step(ppipe, k)(state)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        launches = {n: fn.launches for n, fn in fns.items()}
+        vals = {n: float(v) for n, v in m.items()}
+        print(f"[12] {name} K={k} dispatch on the procedural train split "
+              f"({len(proc_images)} of its 512 384² images, Y): {ms:.1f} ms "
+              f"({k / ms * 1e3:.1f} steps/s), mean metrics {vals}; launches "
+              f"{launches} | {card}")
+        check(all(np.isfinite(list(vals.values())))
+              and all(v == 0 for v in launches.values()),
+              f"the {name} procedural dispatch failed: {vals} {launches}")
+    return tr, state
+
+
+def _lap_serve(card: str, name: str, state, tally: _Tally) -> None:
+    """(b) The trained params, saved in the JAX package's .npz format,
+    served through ``upscale`` on RGB images (Y through the net, bicubic
+    chroma; one image in halo tiles) by the float and int8 routes, with
+    the counts zeroed just before and read just after (tallied by shape);
+    then per-forward launches, f32 card vs CPU, tiled vs whole, a YCbCr
+    image's chroma, int8 against f32 interiors; the int8 deconv route
+    (``make_quantized_predict(quantize_deconv=True)``, static and dynamic)
+    on the same images, tallied, with its launches a forward and the card
+    against the CPU bit for bit (static with one scales dict, as phase
+    4)."""
+    import copy
+
+    from sr_torch.data.native import resize_bicubic_u8
+    from sr_torch.eval.metrics import rgb_to_ycbcr
+    from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
+    from sr_torch.infer import upscale
+    from sr_torch.quant import (
+        calibrate_scales, make_quantized_predict, quantized_apply)
+    from sr_torch.utils.checkpoint import save_params
+    from sr_torch.utils.interop import to_jax_params
+    from sr_torch.utils.precision import no_tf32
+
+    path = str(ROOT / "build" / "chip_smoke" / f"{name}_x4_trained.npz")
+    save_params(path, to_jax_params(state.model))
+    rng = np.random.default_rng(12)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in LAP_IMAGES]
+
+    # ---- the serving path: counts zeroed just before, read just after --
+    fns = _zero_counts()
+    outs = {}
+    with tally:
+        for route, dtype, quantize in LAP_ROUTES:
+            for img in imgs:
+                t0 = time.perf_counter()
+                out = upscale(img, name, path, dtype=dtype,
+                              quantize=quantize, fused=True)
+                ms = (time.perf_counter() - t0) * 1e3
+                h, w = img.shape[:2]
+                check(out.shape == (4 * h, 4 * w, 3)
+                      and out.dtype == np.uint8,
+                      f"{name} upscale output {out.shape} {out.dtype}")
+                outs[route, img.shape] = out
+                print(f"[12] upscale {name} {h}x{w} RGB {route}: "
+                      f"{out.shape} uint8 in {ms:.1f} ms (host clock, first "
+                      "call loads/calibrates)")
+    launches = {n: fn.launches for n, fn in fns.items()}
+    print(f"[12] {name} serving-path launches: {launches}")
+    check(launches["int8_conv"] > 0 and launches["depth_to_space"] == 0
+          and launches["fused_resblock"] == 0
+          and launches["int8_conv raw entry"] == 0,
+          f"the {name} serving path must run its int8 convs through the "
+          "fused int8 kernel and no shuffle or resblock")
+    ycc = rng.integers(0, 256, (13, 11, 3), dtype=np.uint8)
+    got = upscale(ycc, name, path, color_space="ycbcr", fused=True)
+    check(np.array_equal(got[..., 1:], resize_bicubic_u8(ycc, (52, 44))
+                         [..., 1:]),
+          f"the {name} YCbCr output's chroma is not the bicubic upscale's")
+
+    # ---- per-forward counts (the loaded functions are cached) ----
+    fns = _zero_counts()
+    for route, dtype, quantize in LAP_ROUTES:
+        before = {n: fn.launches for n, fn in fns.items()}
+        upscale(imgs[0], name, path, dtype=dtype, quantize=quantize,
+                fused=True)
+        got = {n: fn.launches - before[n] for n, fn in fns.items()}
+        q = LAP_PER_FWD[name][0][0] if quantize else 0
+        print(f"[12] one {name} {route} forward: {got}")
+        check(got == {"depth_to_space": 0, "fused_resblock": 0,
+                      "int8_conv": q, "int8_conv raw entry": 0},
+              f"unexpected {name} launches per forward ({route})")
+
+    # ---- f32: card vs CPU (TF32 off) on the whole image; tiled vs whole
+    with no_tf32():
+        card_out = upscale(imgs[0], name, path, dtype="float32", fused=True)
+        whole = upscale(imgs[1], name, path, dtype="float32", fused=True,
+                        tile=None)
+    cpu_out = upscale(imgs[0], name, path, dtype="float32", fused=True,
+                      device="cpu")
+    d = np.abs(card_out.astype(np.int32) - cpu_out)
+    dt = np.abs(whole.astype(np.int32) - outs["f32", imgs[1].shape])
+    print(f"[12] {name} f32 upscale {imgs[0].shape[:2]}, card vs CPU: max "
+          f"{d.max()} u8 levels, mean {d.mean():.5f} (tol 1); "
+          f"{imgs[1].shape[:2]} in halo tiles vs whole on the card: max "
+          f"{dt.max()} (tol 1)")
+    check(d.max() <= 1 and dt.max() <= 1,
+          f"the {name} f32 upscale differs card vs CPU or tiled vs whole")
+
+    # ---- int8 against f32, interiors (the receptive field, HR px) ----
+    m = 4 * RECEPTIVE_FIELD[name.lower()]
+    for route in ("int8 static", "int8 dynamic"):
+        for img in imgs:
+            a = outs[route, img.shape].astype(np.int32)
+            b = outs["f32", img.shape].astype(np.int32)
+            dd = np.abs(a - b)[m:-m, m:-m]
+            print(f"[12] {name} {route} vs f32 interior {img.shape[:2]}: "
+                  f"max {dd.max()} u8 levels, mean {dd.mean():.4f} (tol mean "
+                  "4)")
+            check(dd.mean() <= 4, f"{name} {route} interior too far from "
+                  "f32")
+
+    # ---- the int8 deconv route (quantize_deconv) on the images' Y, as
+    # upscale cuts them (the second in halo tiles), tallied ----
+    yccs = [np.clip(np.round(rgb_to_ycbcr(img.astype(np.float32)).numpy()),
+                    0, 255).astype(np.uint8) for img in imgs]
+    with no_tf32():
+        f32y = [upscale(ycc, name, path, dtype="float32", fused=True,
+                        color_space="ycbcr")[..., 0].astype(np.int32)
+                for ycc in yccs]
+    model = state.model.eval()
+    halo = RECEPTIVE_FIELD[name.lower()]
+    per = LAP_PER_FWD[name][1]
+    for mode in ("static", "dynamic"):
+        fn = make_quantized_predict(model, mode, calib_headroom=1.25,
+                                    output_u8=True, quantize_deconv=True)
+        for ycc, ref in zip(yccs, f32y):
+            y = torch.from_numpy(ycc[..., :1].astype(np.float32)[None]
+                                 / 255.0).cuda()
+            fns = _zero_counts()
+            with torch.inference_mode(), tally:
+                out = (tiled_predict(fn, y, 4, tile=256, halo=halo)
+                       if max(y.shape[1:3]) > 256 else fn(y))
+            launches = {n: f.launches for n, f in fns.items()}
+            got = out[0, ..., 0].cpu().numpy().astype(np.int32)
+            dd = np.abs(got - ref)[m:-m, m:-m]
+            print(f"[12] {name} int8 {mode} quantize_deconv "
+                  f"{tuple(y.shape[1:3])}: launches {launches}; vs f32 "
+                  f"interior mean {dd.mean():.4f}, max {dd.max()} u8 levels "
+                  "(tol mean 4)")
+            check(got.shape == ref.shape and dd.mean() <= 4,
+                  f"{name} int8 deconv route interior too far from f32")
+            check(launches["fused_resblock"] == 0
+                  and launches["int8_conv raw entry"] == 0
+                  and (max(y.shape[1:3]) > 256 or (
+                      launches["int8_conv"], launches["depth_to_space"])
+                      == per),
+                  f"{name} int8 deconv route launches {launches}, want "
+                  f"{per} a forward")
+    # card == CPU bit for bit, static with one scales dict (phase 4)
+    x = torch.from_numpy(yccs[0][..., :1].astype(np.float32)[None]
+                         / 255.0).cuda()
+    scales = calibrate_scales(model, x, headroom=1.25)
+    cpu_model = copy.deepcopy(model).cpu()
+    for mode, sc in (("static", scales), ("dynamic", None)):
+        on_cpu = quantized_apply(cpu_model, x.cpu(), sc,
+                                 quantize_deconv=True)
+        fns = _zero_counts()
+        on_card = quantized_apply(model, x, sc, quantize_deconv=True)
+        launches = (fns["int8_conv"].launches,
+                    fns["depth_to_space"].launches)
+        n_diff = int((on_card.cpu() != on_cpu).sum())
+        print(f"[12] {name} int8 {mode} quantize_deconv forward "
+              f"{tuple(x.shape)}, card vs CPU: {n_diff} of {on_cpu.numel()}"
+              f" outputs differ (want 0); {launches[0]} int8 convs and "
+              f"{launches[1]} shuffles (want {per})")
+        check(n_diff == 0 and launches == per,
+              f"the {name} int8 deconv forward differs card vs CPU")
+
+
+def _lap_levels(card: str, state) -> None:
+    """(d) LapSRN's pyramid: ``upscale(scale_factor=2, net_scale=4)`` of the
+    trained ×4 net equals level 0 of its ``all_scales`` forward (the same
+    predict, to u8), f32 card vs CPU ≤ 1 u8 level; ``quantize`` with
+    ``net_scale``, a non power-of-2 scale and FSRCNN with ``net_scale``
+    raise ``ValueError``; the HTTP server with ``net_scale=4,
+    scale_factor=2`` returns what ``upscale`` returns, and ``/info`` says
+    so."""
+    from PIL import Image
+
+    from sr_torch.infer import upscale
+    from sr_torch.quant import to_u8
+    from sr_torch.serve import SRService, serve_background
+    from sr_torch.utils.precision import no_tf32
+
+    path = str(ROOT / "build" / "chip_smoke" / "LapSRN_x4_trained.npz")
+    rng = np.random.default_rng(13)
+    ycc = rng.integers(0, 256, (96, 80, 3), dtype=np.uint8)
+    fns = _zero_counts()
+    got = upscale(ycc, "LapSRN", path, scale_factor=2, net_scale=4,
+                  color_space="ycbcr", fused=True)
+    launches = {n: fn.launches for n, fn in fns.items()}
+    model = state.model.eval()
+    x = torch.from_numpy(ycc[..., :1].astype(np.float32)[None] / 255.0
+                         ).cuda()
+    with torch.inference_mode():
+        levels = model(x, all_scales=True)
+    want = to_u8(levels[0])[0, ..., 0].cpu().numpy()
+    check(got.shape == (192, 160, 3) and len(levels) == 2
+          and levels[1].shape == (1, 384, 320, 1),
+          f"LapSRN x2 level {got.shape}, levels {[t.shape for t in levels]}")
+    check(np.array_equal(got[..., 0], want),
+          "upscale(scale_factor=2, net_scale=4) is not level 0 of the "
+          "all_scales forward")
+    with no_tf32():
+        card32 = upscale(ycc, "LapSRN", path, scale_factor=2, net_scale=4,
+                         dtype="float32", color_space="ycbcr")
+    cpu32 = upscale(ycc, "LapSRN", path, scale_factor=2, net_scale=4,
+                    dtype="float32", color_space="ycbcr", device="cpu")
+    d = np.abs(card32.astype(np.int32) - cpu32)
+    print(f"[12] LapSRN x2 level of the x4 net (96x80 Y): == level 0 of "
+          f"all_scales; launches {launches}; f32 card vs CPU max {d.max()} "
+          "u8 levels (tol 1)")
+    check(d.max() <= 1 and all(v == 0 for v in launches.values()),
+          "the LapSRN x2 level differs card vs CPU or launched a kernel")
+    fsrcnn_path = str(ROOT / "build" / "chip_smoke" / "FSRCNN_x4_trained.npz")
+    for kw, what in ((dict(params=path, scale_factor=2, net_scale=4,
+                           quantize="static"), "quantize"),
+                     (dict(params=path, scale_factor=3, net_scale=4),
+                      "power-of-2"),
+                     (dict(params=fsrcnn_path, scale_factor=2, net_scale=4,
+                           name="FSRCNN"), "intermediate")):
+        name = kw.pop("name", "LapSRN")
+        try:
+            upscale(ycc, name, kw.pop("params"), **kw)
+        except ValueError as e:
+            check(what in str(e), f"unexpected refusal: {e}")
+        else:
+            raise SmokeFailure(f"upscale({name}, {kw}) did not refuse")
+    print("[12] net_scale with quantize, at scale 3 and on FSRCNN: each "
+          "ValueError, as sr.infer")
+    service = SRService(model_name="LapSRN", params=path, scale_factor=2,
+                        net_scale=4)
+    httpd, port = serve_background(service)
+    img = rng.integers(0, 256, (40, 52, 3), dtype=np.uint8)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("GET", "/info")
+    info = json.loads(conn.getresponse().read())
+    conn.request("POST", "/upscale", body=_png(img),
+                 headers={"Content-Type": "image/png"})
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    httpd.shutdown()
+    httpd.server_close()
+    check(resp.status == 200 and info["net_scale"] == 4
+          and info["scale_factor"] == 2, f"POST /upscale net_scale: "
+          f"{resp.status}, /info {info}")
+    served = np.asarray(Image.open(io.BytesIO(body)))
+    check(np.array_equal(served, upscale(img, "LapSRN", path, scale_factor=2,
+                                         net_scale=4, fused=True)),
+          "the served x2 level differs from a direct upscale")
+    print(f"[12] POST /upscale to a --net_scale 4 --scale_factor 2 service "
+          f"== direct upscale {served.shape}")
+
+
+def _lap_eval(card: str, name: str, tr, state, sets) -> None:
+    """(e) The trained model through ``evaluate(channels=1)`` on the
+    synthetic set and 8 procedural 384² images (YCbCr), host and device
+    metrics, the counts zeroed just before and read just after (no port
+    kernel runs in these models' float forward); device metrics within
+    1e-4 dB and 1e-5 SSIM of the host's; images/s by CUDA events."""
+    predict = functools.partial(tr.make_predict_fn(), state.model)
+    kw = dict(scale_factor=4, channels=1, color_space="ycbcr")
+    for _, ds in sets:  # warm-up: cuDNN's plans at each shape
+        _timed_eval(predict, ds, on_device_metrics=True, **kw)
+    fns = _zero_counts()
+    runs = {(set_name, on_dev): _timed_eval(predict, ds,
+                                            on_device_metrics=on_dev, **kw)
+            for set_name, ds in sets for on_dev in (False, True)}
+    launches = {n: fn.launches for n, fn in fns.items()}
+    check(all(v == 0 for v in launches.values()),
+          f"the {name} eval path launched a port kernel: {launches}")
+    for set_name, _ in sets:
+        host, dev = runs[set_name, False][0], runs[set_name, True][0]
+        _check_eval(host, f"{name} {set_name}")
+        _check_eval(dev, f"{name} {set_name}")
+        pairs = list(zip(host.images, dev.images))
+        dp = max(abs(a.psnr_sr - b.psnr_sr) for a, b in pairs)
+        dss = max(abs(a.ssim_sr - b.ssim_sr) for a, b in pairs)
+        print(f"[12] {name} eval {set_name} (Y): host vs device metrics, "
+              f"PSNR max diff {dp:.3g} dB (tol 1e-4), SSIM {dss:.3g} (tol "
+              f"1e-5); model {host.avg_psnr_sr:.4f} dB, bicubic "
+              f"{host.avg_psnr_bicubic:.4f} dB")
+        check(dp <= 1e-4 and dss <= 1e-5,
+              f"{name} {set_name}: device metrics differ from the host's")
+        for on_dev in (False, True):
+            res, ms, pred_ms, _ = runs[set_name, on_dev]
+            n = len(res.images)
+            print(f"[12] {name} eval {set_name}, "
+                  f"{'device' if on_dev else 'host'} metrics: "
+                  f"{n / ms * 1e3:.2f} images/s, {ms / n:.3f} ms/image (CUDA "
+                  f"events), predict {pred_ms / n:.3f} ms/image "
+                  f"({100 * pred_ms / ms:.1f}% of the span) | {card}")
+
+
+def _lap_throughput(card: str, name: str, state, tally: _Tally) -> None:
+    """(f) MP/s at b16 128² → 512² on Y, one route at a time (one event pair
+    a batch, median of 10): bf16 exact, int8 static, int8 static with
+    quantize_deconv, int8 dynamic. Reported, not gated."""
+    from sr_torch.infer import make_serving_predict
+    from sr_torch.quant import make_quantized_predict
+
+    model = state.model.eval()
+    x = torch.rand((16, 128, 128, 1), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(14))
+    mp = 16 * 512 * 512 / 1e6
+    routes = (("bf16 exact", lambda: make_serving_predict(model, True)),
+              ("int8 static", lambda: make_quantized_predict(
+                  model, "static", calib_headroom=1.25)),
+              ("int8 static quantize_deconv", lambda: make_quantized_predict(
+                  model, "static", calib_headroom=1.25,
+                  quantize_deconv=True)),
+              ("int8 dynamic", lambda: make_quantized_predict(model,
+                                                              "dynamic")))
+    with torch.inference_mode(), tally:
+        for route, make in routes:
+            fn = make()
+            if hasattr(fn, "calibrate"):
+                fn.calibrate([x])
+            ms = time_ms(lambda: fn(x), n=10)
+            print(f"[12] {name} x4 {route} b16 128->512 (Y): {ms:.3f} "
+                  f"ms/batch, {mp / ms * 1e3:.1f} MP/s | {card}")
+
+
+def phase_fsrcnn_lapsrn(card: str) -> list[dict]:
+    """Phase 12: FSRCNN and LapSRN ×4 on Y at full width (FSRCNN 56/12/4
+    with its 9×9 stride-4 deconv, LapSRN 64 filters × 5 convs a level, two
+    levels). (a) the fused int8 entry at every int8 site shape and the f32
+    shuffle at every int8-deconv shape of both serving images, exact and
+    timed; per model (c) training, (b) serving, (d) LapSRN's pyramid
+    levels, (e) eval and (f) MP/s by route, each path with its own zeroed
+    counts. Returns the kernel rows, each with the launches of its shape
+    on its model's serving paths."""
+    from sr_torch.data.datasets import SyntheticDataset, get_test_set
+    from sr_torch.data.procedural import ProceduralDataset
+
+    t0 = time.perf_counter()
+    rows = _lap_kernel_rows(card)
+    print(f"[12] kernel rows: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    ds = SyntheticDataset(num_images=32, size=(160, 160), channels=3,
+                          seed=100)
+    images = [ds[i][..., :1] for i in range(len(ds))]
+    proc = ProceduralDataset(num_images=LAP_PROCEDURAL, size=(384, 384),
+                             seed=0, split="train", color_space="ycbcr")
+    proc_images = [proc[i][..., :1] for i in range(len(proc))]
+    sets = (("synthetic",
+             get_test_set(str(ROOT / "build" / "chip_smoke"), "synthetic")),
+            ("procedural", ProceduralDataset(
+                num_images=8, size=(384, 384), split="test",
+                color_space="ycbcr")))
+    for _, test_set in sets:
+        for i in range(len(test_set)):
+            test_set[i]
+    print(f"[12] corpora (synthetic, {LAP_PROCEDURAL} procedural train "
+          f"images, the test sets): {time.perf_counter() - t1:.1f} s")
+    tallies = {}
+    for name in LAP_INT8:
+        t1 = time.perf_counter()
+        tr, state = _lap_train(card, name, images,
+                               proc_images if name == "LapSRN" else None)
+        tallies[name] = _Tally()
+        _lap_serve(card, name, state, tallies[name])
+        if name == "LapSRN":
+            _lap_levels(card, state)
+        _lap_eval(card, name, tr, state, sets)
+        _lap_throughput(card, name, state, tallies[name])
+        del tr, state
+        torch.cuda.empty_cache()
+        print(f"[12] {name} seconds {time.perf_counter() - t1:.1f}")
+    for row in rows:
+        tally = tallies[row.pop("model")]
+        if row["name"] == "depth_to_space":
+            row["launches"] = tally.d2s[tuple(row["shape"]), torch.float32]
+        else:
+            row["launches"] = tally.int8[tuple(row["shape"])]
+    check(all(row["launches"] > 0 for row in rows),
+          "an FSRCNN / LapSRN kernel row's shape was not launched on its "
+          "path: "
+          f"{[(r['name'], r.get('path'), r['shape'], r['launches']) for r in rows]}")
+    print(f"[12] phase seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
 BENCH_KEYS = ("value", "vs_baseline", "bf16_exact_mps", "bf16_fused_mps",
               "bf16_fused_vs_baseline", "bf16_best_mps")
 
@@ -3438,6 +4162,8 @@ def main() -> int:
     entries += phase_preupsample(card)
     torch.cuda.empty_cache()
     entries += phase_srresnet(card)
+    torch.cuda.empty_cache()
+    entries += phase_fsrcnn_lapsrn(card)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -17,4 +17,8 @@ checkpoints with exact resume). Slice 7 evaluates it:
 Slice 8 trains, serves and evaluates ESPCN ×4 on Y, and ports ``bench.py``
 as ``python -m sr_torch.bench``. Slice 9 trains, serves (float and int8)
 and evaluates the pre-upsample family on Y: SRCNN, VDSR and DRCN ×4.
+Slice 10 does so for SRResNet ×4 and trains SRGAN ×4. Slice 11 adds FSRCNN
+and LapSRN ×4 on Y (transposed convs, int8 deconvs, LapSRN's pyramid
+levels through ``net_scale``) and the procedural and folder training
+corpora.
 """

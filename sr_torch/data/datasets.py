@@ -11,8 +11,6 @@ Port of ``sr/data/datasets.py`` with the reference's directory conventions
 :class:`SyntheticDataset` is a numpy copy that makes the same uint8 images,
 bit for bit, from the same seed, so tests and the smoke run need no
 download. The port never downloads: BSDS300 must be extracted beforehand.
-Training takes ``'synthetic'`` only; training on the folder and
-``procedural`` corpora comes with the models that need it.
 """
 
 from __future__ import annotations
@@ -24,7 +22,18 @@ import numpy as np
 
 from sr_torch.data.decode import list_images, load_img
 
-_LATER = "lands in a later port slice"
+
+
+def _bsds300(data_dir: str) -> str:
+    """The extracted ``BSDS300/images`` directory; raises if it is absent,
+    since the port never downloads."""
+    root = os.path.join(data_dir, "BSDS300", "images")
+    if not os.path.isdir(root):
+        raise RuntimeError(
+            f"BSDS300 not found at {root}: download and extract "
+            f"BSDS300-images.tgz into {data_dir} beforehand (sr_torch "
+            "never downloads), or use 'synthetic' / 'procedural'")
+    return root
 
 
 @dataclass
@@ -90,18 +99,44 @@ class SyntheticDataset:
 
 
 def get_training_set(data_dir: str, datasets: list[str] | str,
-                     color_space: str = "ycbcr") -> SyntheticDataset:
-    """Training dataset by name: ``'synthetic'`` (32 images at 160², seed
-    0, as in the JAX package). ``data_dir`` and ``color_space`` serve the
-    folder and procedural corpora, which raise until their slice lands."""
-    del data_dir, color_space
+                     color_space: str = "ycbcr"):
+    """Training dataset by name(s). (reference: data.py:get_training_set)
+
+    ``'synthetic'`` → 32 synthetic images at 160² (seed 0);
+    ``'procedural'`` → the 512-image 384² train split (seed 0), generated
+    once and cached under ``data_dir/procedural_cache`` with the JAX
+    package's file name; either stands alone. ``'bsds300'`` → the
+    extracted ``BSDS300/images/train`` (never downloaded); any other name →
+    the images of ``data_dir/train/<name>``. Several folder names
+    concatenate into one :class:`FolderDataset`.
+    """
     if isinstance(datasets, str):
         datasets = [datasets]
-    if [d.lower() for d in datasets] == ["synthetic"]:
-        return SyntheticDataset(num_images=32, size=(160, 160), seed=0)
-    raise NotImplementedError(
-        f"training set {datasets!r} {_LATER} (the port trains on "
-        "'synthetic' for now; nothing is downloaded)")
+    paths: list[str] = []
+    for name in datasets:
+        lname = name.lower()
+        if lname in ("synthetic", "procedural"):
+            if len(datasets) > 1:
+                raise ValueError(
+                    f"'{lname}' is a standalone dataset and cannot be "
+                    f"concatenated with {[d for d in datasets if d != name]}"
+                )
+            if lname == "procedural":
+                from sr_torch.data.procedural import ProceduralDataset
+
+                return ProceduralDataset(
+                    num_images=512, size=(384, 384), seed=0, split="train",
+                    color_space=color_space,
+                ).materialize(os.path.join(data_dir, "procedural_cache"))
+            return SyntheticDataset(num_images=32, size=(160, 160), seed=0)
+        if lname == "bsds300":
+            paths += list_images(os.path.join(_bsds300(data_dir), "train"))
+        else:
+            paths += list_images(os.path.join(data_dir, "train", name))
+    if not paths:
+        raise RuntimeError(
+            f"no training images found for {datasets} in {data_dir}")
+    return FolderDataset(paths, color_space)
 
 
 def get_test_set(data_dir: str, dataset: str, color_space: str = "ycbcr"):
@@ -124,13 +159,8 @@ def get_test_set(data_dir: str, dataset: str, color_space: str = "ycbcr"):
             color_space=color_space,
         ).materialize(os.path.join(data_dir, "procedural_cache"))
     if lname == "bsds300":
-        root = os.path.join(data_dir, "BSDS300", "images")
-        if not os.path.isdir(root):
-            raise RuntimeError(
-                f"BSDS300 not found at {root}: download and extract "
-                f"BSDS300-images.tgz into {data_dir} beforehand (sr_torch "
-                "never downloads), or use 'synthetic' / 'procedural'")
-        return FolderDataset(list_images(os.path.join(root, "test")),
-                             color_space)
+        return FolderDataset(
+            list_images(os.path.join(_bsds300(data_dir), "test")),
+            color_space)
     return FolderDataset(list_images(os.path.join(data_dir, "test", dataset)),
                          color_space)

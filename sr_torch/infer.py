@@ -17,14 +17,19 @@ upscale serves a pre-upsample model's input and the chroma.
     sr_img = upscale(img_u8, "EDSR", "results/EDSR_x4/EDSR_params.npz",
                      scale_factor=4, quantize="static", fused=True)
 
+A pyramid model (LapSRN) trained at ×``net_scale`` serves each smaller
+power-of-2 scale from its intermediate level
+(:func:`make_pyramid_level_predict`).
+
 Every entry point runs on ``device="cuda"`` unless the caller asks for the
-CPU. ``self_ensemble`` and ``net_scale`` land in later port slices and
-raise ``NotImplementedError``.
+CPU. ``self_ensemble`` lands in a later port slice and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import os
 
 import numpy as np
@@ -100,12 +105,41 @@ def make_serving_predict(model, fused: bool, quantize: bool | str = False,
     return fn
 
 
+def make_pyramid_level_predict(model, spec, trained_scale: int,
+                               select_scale: int, output_u8: bool = False):
+    """Serve a pyramid model's intermediate ×``select_scale`` level
+    (``sr/infer.py:make_pyramid_level_predict``): one net trained at
+    ``trained_scale`` serves every power-of-2 scale below it from its
+    deep-supervised level outputs. The exact level graph, in eval mode:
+    the fused and int8 rewrites target single-output tails."""
+    if not spec.multi_scale_out:
+        raise ValueError(
+            f"{spec.name} has no intermediate scales; net_scale "
+            "only applies to pyramid models (LapSRN)")
+    if select_scale & (select_scale - 1) or not (
+            1 < select_scale < trained_scale):
+        raise ValueError(
+            f"net_scale={trained_scale} serves power-of-2 scales "
+            f"2..{trained_scale // 2}, got {select_scale}")
+    level = int(math.log2(select_scale)) - 1
+    model.eval()
+
+    def predict(x):
+        y = model(x, all_scales=True)[level]
+        return to_u8(y) if output_u8 else y
+
+    return predict
+
+
 @functools.lru_cache(maxsize=8)
 def _load(model_name: str, params_path: str, params_mtime: float,
           scale_factor: int, num_channels: int | None, dtype: str,
           fused: bool, quantize: bool | str, output_u8: bool,
-          calib_headroom: float, device: torch.device):
-    """``(spec, channels, predict)`` for the model at ``params_path``."""
+          calib_headroom: float, device: torch.device,
+          select_scale: int | None = None):
+    """``(spec, channels, predict)`` for the model at ``params_path``, built
+    at ``scale_factor``; ``select_scale`` (below it) serves that pyramid
+    level."""
     # params_mtime keys the cache so a re-exported file at the same path
     # is picked up instead of serving stale weights
     del params_mtime
@@ -117,6 +151,19 @@ def _load(model_name: str, params_path: str, params_mtime: float,
     params, batch_stats = load_params(params_path)
     from_jax_params(model, params, batch_stats)
     model = model.to(device).eval()
+    if select_scale is not None and select_scale != scale_factor:
+        if quantize:
+            # the JAX package's contract: the int8 rewrites target the
+            # final single-output tail, not a deep-supervised level, and a
+            # refusal beats serving float under a quantize flag
+            raise ValueError(
+                "net_scale (pyramid level serving) does not compose "
+                "with quantize — serve the exact level graph "
+                "(drop --quantize) or the full-scale output")
+        # fused is a hint: a pyramid has no fused tail, so the level is
+        # served by its exact graph, not refused
+        return spec, channels, make_pyramid_level_predict(
+            model, spec, scale_factor, select_scale, output_u8=output_u8)
     # a static predict keeps its calibration in the cached function, so
     # later requests reuse the first request's scales, as in sr.infer
     return spec, channels, make_serving_predict(
@@ -164,16 +211,25 @@ def upscale(
     super-resolves the luma (converting from RGB when needed), merges
     bicubic-upscaled chroma back and returns the input's encoding; a
     3-channel model takes the image as it is (feed it the space it was
-    trained in). ``device`` defaults to the card; pass ``"cpu"`` for the
-    plain PyTorch versions of the kernels.
+    trained in). ``net_scale``: the scale the params were trained at, when
+    it differs from ``scale_factor``: a pyramid model (LapSRN) then serves
+    the matching intermediate level of the one trained net (for example
+    ``scale_factor=2, net_scale=4``); other models, other scales and
+    ``quantize`` raise ``ValueError``, as in the JAX package. ``device``
+    defaults to the card; pass ``"cpu"`` for the plain PyTorch versions of
+    the kernels.
     """
-    if self_ensemble or net_scale:
-        raise NotImplementedError(f"self_ensemble / net_scale {_LATER}")
+    if self_ensemble:
+        raise NotImplementedError(f"self_ensemble {_LATER}")
     device = resolve_device(device)
+    # with net_scale the model builds at its trained scale and the
+    # predict serves the level of the requested one
     spec, channels, fn = _load(model_name, params_path,
-                         os.path.getmtime(params_path), scale_factor,
-                         num_channels, dtype, fused, quantize, output_u8,
-                         calib_headroom, device)
+                               os.path.getmtime(params_path),
+                               net_scale or scale_factor, num_channels,
+                               dtype, fused, quantize, output_u8,
+                               calib_headroom, device,
+                               scale_factor if net_scale else None)
     if img.ndim == 2:
         img = img[:, :, None]
     r = scale_factor

@@ -2,5 +2,5 @@
 (as ``sr/models/__init__.py`` does)."""
 
 from sr_torch.models import (  # noqa: F401
-    drcn, edsr, espcn, srcnn, srgan, srresnet, vdsr)
+    drcn, edsr, espcn, fsrcnn, lapsrn, srcnn, srgan, srresnet, vdsr)
 from sr_torch.models.registry import ModelSpec, get_spec  # noqa: F401

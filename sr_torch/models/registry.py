@@ -38,6 +38,10 @@ class ModelSpec:
     has_batchnorm: bool = False
     # (SRConfig, torch.Generator | None) -> the discriminator (GAN recipes)
     make_discriminator: Callable[..., Any] | None = None
+    # the model returns every power-of-2 level up to scale_factor with
+    # forward(x, all_scales=True) (LapSRN's pyramid; sr_torch.infer serves
+    # a level with net_scale)
+    multi_scale_out: bool = False
     # optional pre-shuffle training (models whose tail ends in a pixel
     # shuffle): model → (apply_fn, r_last), where apply_fn(x) returns the
     # output before the last shuffle, (B, H·r/r_last, W·r/r_last,
@@ -67,6 +71,5 @@ def get_spec(name: str) -> ModelSpec:
     key = name.lower()
     if key not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; the port serves "
-                       f"{sorted(_REGISTRY)} (other models land in a later "
-                       "port slice)")
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[key]

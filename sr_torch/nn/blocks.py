@@ -1,4 +1,5 @@
-"""NN building blocks: ConvBlock, ResnetBlock, PSBlock, PReLU, BatchNorm.
+"""NN building blocks: ConvBlock, DeconvBlock, ResnetBlock, PSBlock, PReLU,
+BatchNorm.
 
 Port of ``sr/nn/blocks.py``: the activation menu (``relu``, ``prelu``,
 ``lrelu`` with slope 0.2, ``tanh``, ``sigmoid``, ``None``), ``norm="batch"``
@@ -41,11 +42,18 @@ same in both packages.
   shuffle (the conv, then the activation where it commutes with the
   shuffle), for the pre-shuffle training forwards and the folded serving
   tails.
-* Other convs are ``F.conv2d``: the JAX package left them to XLA, outside
-  any Pallas kernel.
-* Every conv goes through :func:`_apply_conv`, which first offers it to the
-  active interceptor (``sr_torch/nn/intercept.py``), as flax's
-  ``intercept_methods`` sees each ``nn.Conv`` call of the JAX blocks. While
+* ``DeconvBlock`` is a transposed conv with exact ×stride output (FSRCNN's
+  9×9 stride 4, LapSRN's 4×4 stride 2): torch's ``ConvTranspose2d`` with
+  ``p = ceil((k-s)/2)`` and ``output_padding = 2p-(k-s)``, the geometry
+  that ``sr/nn/blocks.py:DeconvBlock`` pads for explicitly. Its weight
+  ``(in, out, kh, kw)`` is flax's unflipped HWIO kernel flipped in space
+  (``sr_torch/utils/interop.py``).
+* Other convs and every deconv are ``F.conv2d`` / ``F.conv_transpose2d``:
+  the JAX package left them to XLA, outside any Pallas kernel.
+* Every conv and deconv goes through :func:`_apply_conv`, which first
+  offers it to the active interceptor (``sr_torch/nn/intercept.py``), as
+  flax's ``intercept_methods`` sees each ``nn.Conv`` and
+  ``nn.ConvTranspose`` call of the JAX blocks. While
   one is active, ``ResnetBlock`` runs its two convs one by one, so int8
   serving and calibration see every conv. Norms and activations stay float
   between the int8 sites, as in ``sr.quant``.
@@ -192,8 +200,36 @@ def _conv(in_features: int, features: int, kernel_size: int, stride: int,
     return conv
 
 
-def _run_conv(conv: nn.Conv2d, x: torch.Tensor, dtype, add_bias: bool
-              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+def deconv_padding(kernel_size: int, stride: int) -> tuple[int, int]:
+    """``(padding, output_padding)`` of a transposed conv whose output is
+    exactly ``stride`` × its input: ``p = ceil((k-s)/2)``, ``op =
+    2p-(k-s)`` (k4 s2 → (1, 0); k9 s4 → (3, 1))."""
+    p = -(-(kernel_size - stride) // 2)
+    return p, 2 * p - (kernel_size - stride)
+
+
+def _deconv(in_features: int, features: int, kernel_size: int, stride: int,
+            use_bias: bool, generator: torch.Generator | None,
+            kernel_init: str | None = None) -> nn.ConvTranspose2d:
+    """A transposed conv of exact ×``stride`` output with the kernel init
+    called ``kernel_init`` (fan-in from flax's HWIO kernel) and a zero
+    bias."""
+    if kernel_size < stride:
+        raise ValueError(f"a deconv of kernel {kernel_size} < stride "
+                         f"{stride} has no exact ×stride geometry")
+    p, op = deconv_padding(kernel_size, stride)
+    deconv = nn.utils.skip_init(nn.ConvTranspose2d, in_features, features,
+                                kernel_size, stride=stride, padding=p,
+                                output_padding=op, bias=use_bias)
+    get_kernel_init(kernel_init)(deconv.weight, generator, transposed=True)
+    if use_bias:
+        with torch.no_grad():
+            deconv.bias.zero_()
+    return deconv
+
+
+def _run_conv(conv: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor, dtype,
+              add_bias: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
     """``conv`` on ``x``: ``(y, bias_left)``. ``bias_left`` is the conv's
     bias in ``dtype`` when ``add_bias`` is false and the conv ran here
     without it, for the caller to add; else None (an interceptor's conv
@@ -206,12 +242,18 @@ def _run_conv(conv: nn.Conv2d, x: torch.Tensor, dtype, add_bias: bool
         if y is not None:
             return y, None
     bias = None if conv.bias is None else conv.bias.to(dtype)
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype),
-                 bias if add_bias else None, conv.stride, conv.padding)
+    if isinstance(conv, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x.to(dtype), conv.weight.to(dtype),
+                               bias if add_bias else None, conv.stride,
+                               conv.padding, conv.output_padding)
+    else:
+        y = F.conv2d(x.to(dtype), conv.weight.to(dtype),
+                     bias if add_bias else None, conv.stride, conv.padding)
     return y, None if add_bias else bias
 
 
-def _apply_conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+def _apply_conv(conv: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor,
+                dtype) -> torch.Tensor:
     return _run_conv(conv, x, dtype, add_bias=True)[0]
 
 
@@ -239,6 +281,29 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._NormAct_0(_apply_conv(self.Conv_0, x, self.dtype))
+
+
+class DeconvBlock(nn.Module):
+    """Transposed conv (exact ×stride upsampling) → [norm] → [act].
+    (sr/nn/blocks.py:DeconvBlock; see :func:`deconv_padding`)"""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 4,
+                 stride: int = 2, act: str | None = "relu",
+                 norm: str | None = None, use_bias: bool = True,
+                 kernel_init: str | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        _check_menu(act, norm)
+        self.dtype = dtype
+        self.ConvTranspose_0 = _deconv(in_features, features, kernel_size,
+                                       stride, use_bias, generator,
+                                       kernel_init)
+        self._NormAct_0 = _NormAct(features, norm, act, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._NormAct_0(_apply_conv(self.ConvTranspose_0, x,
+                                           self.dtype))
 
 
 class ResnetBlock(nn.Module):

@@ -1,8 +1,9 @@
 """Conv interception, the port's ``flax.linen.intercept_methods``.
 
-``sr/quant.py`` swaps every ``nn.Conv`` call for its int8 path, or records
-each conv's input for calibration, by intercepting the module calls without
-touching model code. The port's blocks route every conv through
+``sr/quant.py`` swaps every ``nn.Conv`` call (and with ``quantize_deconv``
+every ``nn.ConvTranspose`` call) for its int8 path, or records each site's
+input for calibration, by intercepting the module calls without touching
+model code. The port's blocks route every conv and deconv through
 ``sr_torch.nn.blocks._apply_conv``, which hands ``(conv, x)`` to the active
 interceptor before it casts ``x`` to the block's dtype:
 
@@ -15,8 +16,9 @@ of the server never see each other's. While one is active, ``ResnetBlock``
 runs its convs one by one instead of through the fused kernel, so that each
 conv is a site.
 
-:func:`site_keys` names each conv by its flax module path (``head/Conv_0``,
-``blocks_3/Conv_1``, ``upsample_0/Conv_0``), the keys of the JAX package's
+:func:`site_keys` names each conv and transposed conv by its flax module
+path (``head/Conv_0``, ``blocks_3/Conv_1``, ``upsample_0/Conv_0``,
+``DeconvBlock_0/ConvTranspose_0``), the keys of the JAX package's
 calibrated scales. :func:`recurrent_convs` finds the convs of a block that
 a model applies in a loop with shared weights (DRCN's recursion, marked
 ``recurrent``): the JAX package's calibration skips the sites inside its
@@ -34,7 +36,10 @@ from torch import nn
 
 from sr_torch.utils.interop import flax_path
 
-Interceptor = Callable[[nn.Conv2d, torch.Tensor], Optional[torch.Tensor]]
+#: the conv sites: convs, and the transposed convs of ``DeconvBlock``
+SITES = (nn.Conv2d, nn.ConvTranspose2d)
+
+Interceptor = Callable[[nn.Module, torch.Tensor], Optional[torch.Tensor]]
 
 _ACTIVE: contextvars.ContextVar[Interceptor | None] = contextvars.ContextVar(
     "sr_torch_conv_interceptor", default=None)
@@ -55,11 +60,12 @@ def active() -> Interceptor | None:
     return _ACTIVE.get()
 
 
-def site_keys(model: nn.Module) -> dict[nn.Conv2d, str]:
-    """``{conv module: flax path}`` for every ``nn.Conv2d`` in ``model``."""
+def site_keys(model: nn.Module) -> dict[nn.Module, str]:
+    """``{conv module: flax path}`` for every ``nn.Conv2d`` and
+    ``nn.ConvTranspose2d`` in ``model``."""
     return {m: "/".join(flax_path(name))
             for name, m in model.named_modules()
-            if isinstance(m, nn.Conv2d)}
+            if isinstance(m, SITES)}
 
 
 def recurrent_convs(model: nn.Module) -> set[nn.Conv2d]:

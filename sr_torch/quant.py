@@ -28,10 +28,27 @@ serving runs in eval mode with their running statistics and in the
 model's dtype, so in a bfloat16 model the tensor after a norm is bfloat16
 and the next site returns bfloat16.
 
-Mechanism: ``sr_torch.nn.intercept`` offers each conv of the blocks to an
-interceptor, the counterpart of ``flax.linen.intercept_methods``. Grouped,
-strided, dilated or even-sized convs and deconvs belong to no port model
-yet and raise ``NotImplementedError``; nothing falls back to a float conv.
+Transposed convs (FSRCNN's 9×9 stride-4 tail, LapSRN's 4×4 stride-2
+pyramid) run in the compute dtype by default, as in the JAX package;
+``quantize_deconv=True`` runs each as int8 too (:func:`int8_deconv`, the
+contract of ``sr/quant.py:int8_deconv``). A stride-s transposed conv whose
+output is exactly s·H × s·W equals one stride-1 SAME conv with s²·N
+outputs followed by the pixel shuffle, ``out[s·q+i] = Σ_d x[q+d] ·
+w[i+p−s·d]``: the deconv's already-quantized kernel is repacked into those
+sub-pixel phases (:func:`phase_pack`, a 3×3 conv for both zoo geometries),
+its per-output-channel scales and bias repeated over the s² phases, and it
+runs through the same fused int8 conv and then the shuffle kernel
+(``sr_torch/kernels/depth_to_space.py``). The int32 accumulator is exact
+either way, so the result equals ``sr.quant.int8_deconv`` bit for bit.
+Calibration records a deconv's input as it records a conv's, so the scale
+dicts carry the JAX package's keys.
+
+Mechanism: ``sr_torch.nn.intercept`` offers each conv and deconv of the
+blocks to an interceptor, the counterpart of
+``flax.linen.intercept_methods``. Grouped, strided, dilated or even-sized
+convs, and deconvs of another geometry than ``DeconvBlock``'s, belong to no
+port model yet and raise ``NotImplementedError``; nothing falls back to a
+float conv.
 """
 
 from __future__ import annotations
@@ -43,7 +60,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from sr_torch.kernels.depth_to_space import depth_to_space
 from sr_torch.kernels.int8_conv import conv_int8_fused, pack_weights
+from sr_torch.nn.blocks import deconv_padding
 from sr_torch.nn.intercept import intercept_convs, recurrent_convs, site_keys
 
 _EPS = 1e-12
@@ -109,10 +128,33 @@ def quantize_activation_static(x: torch.Tensor, scale
     return q, s
 
 
-def _check_site(conv: nn.Module) -> None:
-    if not isinstance(conv, nn.Conv2d):
+def _check_deconv(deconv: nn.Module) -> None:
+    """Refuse a transposed conv the phase route cannot run: anything but a
+    square kernel k ≥ s, stride (s, s) and ``DeconvBlock``'s exact ×s
+    padding, no dilation or groups."""
+    if not isinstance(deconv, nn.ConvTranspose2d):
+        raise TypeError(f"int8_deconv takes an nn.ConvTranspose2d, got "
+                        f"{type(deconv).__name__}")
+    k, s = deconv.kernel_size, deconv.stride
+    if (k[0] != k[1] or s[0] != s[1] or k[0] < s[0]
+            or (deconv.padding, deconv.output_padding) != tuple(
+                (v, v) for v in deconv_padding(k[0], s[0]))
+            or deconv.dilation != (1, 1) or deconv.groups != 1):
         raise NotImplementedError(
-            f"int8 {type(conv).__name__} (int8_deconv) {_LATER}")
+            f"int8 deconv with kernel {k}, stride {s}, padding "
+            f"{deconv.padding}, output padding {deconv.output_padding}, "
+            f"dilation {deconv.dilation}, groups {deconv.groups} {_LATER}; "
+            "the port's int8 deconv takes DeconvBlock's exact ×stride "
+            "geometry")
+
+
+def _check_site(conv: nn.Module) -> None:
+    if isinstance(conv, nn.ConvTranspose2d):
+        raise TypeError("a transposed conv is int8_deconv's site, not "
+                        "int8_conv's")
+    if not isinstance(conv, nn.Conv2d):
+        raise TypeError(f"int8_conv takes an nn.Conv2d, got "
+                        f"{type(conv).__name__}")
     k = conv.kernel_size
     if (k[0] != k[1] or k[0] % 2 == 0 or conv.stride != (1, 1)
             or conv.dilation != (1, 1) or conv.groups != 1
@@ -125,16 +167,54 @@ def _check_site(conv: nn.Module) -> None:
             "kernels, SAME padding, stride 1, no groups")
 
 
+def phase_radius(k: int, s: int) -> int:
+    """R of the (2R+1)² SAME conv that computes a k×k stride-s transposed
+    conv of ``DeconvBlock``'s geometry as s² sub-pixel phases: output
+    phase i reads the input at offsets d with 0 ≤ i + p − s·d < k."""
+    p, _ = deconv_padding(k, s)
+    return max((s - 1 + p) // s, (k - 1 - p) // s)
+
+
+def phase_pack(kernel: torch.Tensor, s: int) -> torch.Tensor:
+    """A transposed conv's kernel ``(k, k, C, N)``, in torch's orientation
+    (``weight.permute(2, 3, 0, 1)`` of an ``nn.ConvTranspose2d``), →
+    the ``(2R+1, 2R+1, C, N·s²)`` HWIO kernel of the stride-1 SAME conv
+    whose output, shuffled by :func:`depth_to_space` at r=s, is the
+    deconv's: output channel ``n·s² + i·s + j`` (the shuffle's order) holds
+    phase (i, j) of channel n, ``w[R+dy, R+dx] = kernel[i+p−s·dy,
+    j+p−s·dx]``, zero where that tap lies outside the kernel. Works on any
+    dtype (the int8 kernel after quantization)."""
+    k, _, c, n = kernel.shape
+    p, _ = deconv_padding(k, s)
+    r = phase_radius(k, s)
+    out = kernel.new_zeros((2 * r + 1, 2 * r + 1, c, n, s, s))
+    for i in range(s):
+        for dy in range(-r, r + 1):
+            a = i + p - s * dy
+            if not 0 <= a < k:
+                continue
+            for j in range(s):
+                for dx in range(-r, r + 1):
+                    b = j + p - s * dx
+                    if 0 <= b < k:
+                        out[r + dy, r + dx, :, :, i, j] = kernel[a, b]
+    return out.reshape(2 * r + 1, 2 * r + 1, c, n * s * s)
+
+
 class _Int8Site:
     """One conv's int8 operands, quantized once on the weights' device (the
     JAX package folds them into the executable at trace time): the int8
     HWIO kernel (and on the card its kernel packing), its per-output-channel
     scales, the float32 bias, and for a static site the activation scale
     and the dequantize multiplier. Built from a float HWIO ``kernel`` (k
-    odd, SAME padding) and its ``bias``, or from a conv with :meth:`of`."""
+    odd, SAME padding) and its ``bias``, or from a conv with :meth:`of`.
+    ``phases`` (a deconv's stride s): quantize ``kernel``, a transposed
+    conv's in torch's orientation, per output channel, then repack it
+    with :func:`phase_pack` and repeat its scales and bias over the s²
+    phases (:class:`_Int8DeconvSite`)."""
 
     def __init__(self, kernel: torch.Tensor, bias: torch.Tensor | None,
-                 static_scale=None):
+                 static_scale=None, phases: int | None = None):
         with torch.no_grad():
             kernel = kernel.detach()
             dev = kernel.device
@@ -150,6 +230,13 @@ class _Int8Site:
                 self.s_act = torch.clamp_min(torch.tensor(
                     static_scale, dtype=torch.float32, device=dev), _EPS)
             q_w, self.s_w = quantize_kernel(kernel)
+            if phases is not None:
+                # scales of the deconv's own output channels, taken before
+                # the repack (scales of the phase kernel would differ)
+                q_w = phase_pack(q_w, phases)
+                self.s_w = self.s_w.repeat_interleave(phases * phases)
+                if bias is not None:
+                    bias = bias.detach().repeat_interleave(phases * phases)
             self.q_w = q_w.contiguous()
             self.packed = (pack_weights(self.q_w) if dev.type == "cuda"
                            else None)
@@ -183,6 +270,23 @@ class _Int8Site:
         return self.nhwc(xh).to(x.dtype).permute(0, 3, 1, 2)
 
 
+class _Int8DeconvSite:
+    """One transposed conv's int8 operands as the phase-packed
+    :class:`_Int8Site` of stride s; a call runs the fused int8 conv, then
+    the shuffle at r=s."""
+
+    def __init__(self, deconv: nn.ConvTranspose2d, static_scale=None):
+        _check_deconv(deconv)
+        self.stride = deconv.stride[0]
+        self.site = _Int8Site(deconv.weight.permute(2, 3, 0, 1), deconv.bias,
+                              static_scale, phases=self.stride)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
+        y = depth_to_space(self.site.nhwc(xh), self.stride)
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
 def int8_conv(x: torch.Tensor, conv: nn.Conv2d,
               static_scale=None) -> torch.Tensor:
     """Run ``conv`` on NCHW-logical ``x`` as s8 × s8 → s32 with a float32
@@ -192,13 +296,31 @@ def int8_conv(x: torch.Tensor, conv: nn.Conv2d,
     return _Int8Site.of(conv, static_scale)(x)
 
 
-def _sites(model: nn.Module,
-           scales: dict | None) -> dict[nn.Conv2d, _Int8Site]:
-    """Every conv's int8 operands; a site missing from ``scales`` (or all,
-    for ``None``) runs with dynamic scales."""
+def int8_deconv(x: torch.Tensor, deconv: nn.ConvTranspose2d,
+                static_scale=None) -> torch.Tensor:
+    """Run ``deconv`` (``DeconvBlock``'s exact ×stride geometry) on
+    NCHW-logical ``x`` as s8 × s8 → s32 with a float32 rescale, the bias
+    and the cast to ``x``'s dtype (``sr/quant.py:int8_deconv``), computed
+    as the phase-packed fused int8 conv and the shuffle. ``static_scale``
+    as :func:`int8_conv`'s."""
+    return _Int8DeconvSite(deconv, static_scale)(x)
+
+
+def _sites(model: nn.Module, scales: dict | None,
+           quantize_deconv: bool = False) -> dict[nn.Module, Any]:
+    """Every conv's int8 operands, and with ``quantize_deconv`` every
+    transposed conv's; a site missing from ``scales`` (or all, for
+    ``None``) runs with dynamic scales. A deconv without a site runs in
+    the compute dtype."""
     scales = scales or {}
-    return {conv: _Int8Site.of(conv, scales.get(key))
-            for conv, key in site_keys(model).items()}
+    sites: dict[nn.Module, Any] = {}
+    for conv, key in site_keys(model).items():
+        if isinstance(conv, nn.ConvTranspose2d):
+            if quantize_deconv:
+                sites[conv] = _Int8DeconvSite(conv, scales.get(key))
+        else:
+            sites[conv] = _Int8Site.of(conv, scales.get(key))
+    return sites
 
 
 def _run_sites(model, sites, x, method=None):
@@ -210,25 +332,35 @@ def _run_sites(model, sites, x, method=None):
 
 
 def int8_sites(sites: dict):
-    """Inside ``with``, every conv of the blocks runs through its site of
-    ``sites``."""
-    return intercept_convs(lambda conv, inp: sites[conv](inp))
+    """Inside ``with``, every conv of the blocks with a site in ``sites``
+    runs through it; the others (a deconv left float) run as they are."""
+
+    def fn(conv, inp):
+        site = sites.get(conv)
+        return None if site is None else site(inp)
+
+    return intercept_convs(fn)
 
 
 def quantized_apply(model: nn.Module, x: torch.Tensor,
-                    scales: dict | None = None, method: str | None = None):
+                    scales: dict | None = None, method: str | None = None,
+                    quantize_deconv: bool = False):
     """``model(x)`` (or ``getattr(model, method)(x)``) with every conv
-    running int8. ``scales``: per-site static activation scales from
+    running int8, and every transposed conv too with ``quantize_deconv``.
+    ``scales``: per-site static activation scales from
     :func:`calibrate_scales`; sites absent from the dict use the dynamic
     per-sample scale (``None`` = fully dynamic)."""
-    return _run_sites(model, _sites(model, scales), x, method)
+    return _run_sites(model, _sites(model, scales, quantize_deconv), x,
+                      method)
 
 
 def calibrate_scales(model: nn.Module, x: torch.Tensor,
                      headroom: float = 1.0,
                      per_channel: bool = True) -> dict[str, Any]:
     """One float forward (in the model's dtype) that records each conv's
-    input amax; returns ``{flax path: scale}`` for the static int8 path.
+    and deconv's input amax (deconvs whether or not they will run int8,
+    as the JAX package's capture does); returns ``{flax path: scale}`` for
+    the static int8 path.
     A site visited twice keeps the max. ``headroom`` multiplies every
     scale. ``per_channel`` (default): a per-input-channel ``(C,)`` float32
     vector, else one float. The convs of a recurrent block (DRCN's
@@ -282,10 +414,12 @@ def calibrate_scales_batches(model: nn.Module, batches,
 
 def make_quantized_predict(model: nn.Module, mode: str = "dynamic",
                            calib_headroom: float = 1.0,
-                           output_u8: bool = False, calib_batches=None):
+                           output_u8: bool = False, calib_batches=None,
+                           quantize_deconv: bool = False):
     """Serving forward (NHWC in, NHWC out) with int8 convs; the weights are
     quantized once, when the function is built (dynamic) or calibrated
-    (static).
+    (static). ``quantize_deconv`` runs the transposed convs as int8 too
+    (:func:`int8_deconv`); by default they run in the compute dtype.
 
     ``mode``: ``"dynamic"`` — per-sample activation scales computed on the
     device each call; ``"static"`` — scales calibrated once, on the first
@@ -301,7 +435,7 @@ def make_quantized_predict(model: nn.Module, mode: str = "dynamic",
         return to_u8(y) if output_u8 else y
 
     def _make(scales):
-        sites = _sites(model, scales)
+        sites = _sites(model, scales, quantize_deconv)
         return lambda x: post(_run_sites(model, sites, x))
 
     if mode == "dynamic":

@@ -14,9 +14,12 @@ Endpoints:
   POST /upscale          -> request body: PNG/JPEG bytes;
                             response: image/png of the upscaled image
 
-A 1-channel model (ESPCN, SRCNN, VDSR, DRCN) super-resolves the luma of
-the decoded RGB image and returns RGB, as ``upscale`` does; a pre-upsample
-model (SRCNN, VDSR, DRCN) takes the image bicubic-upscaled on the host.
+A 1-channel model (ESPCN, SRCNN, VDSR, DRCN, FSRCNN, LapSRN)
+super-resolves the luma of the decoded RGB image and returns RGB, as
+``upscale`` does; a pre-upsample model (SRCNN, VDSR, DRCN) takes the image
+bicubic-upscaled on the host. ``--net_scale`` serves a pyramid model
+(LapSRN) trained at that scale at a smaller ``--scale_factor`` from its
+intermediate level.
 
 Usage:
   python -m sr_torch.serve --model_name EDSR --params EDSR_params.npz --port 8000
@@ -24,6 +27,7 @@ Usage:
   python -m sr_torch.serve --model_name ESPCN --params ESPCN_params.npz
   python -m sr_torch.serve --model_name VDSR --params VDSR_params.npz --quantize dynamic
   python -m sr_torch.serve --model_name SRGAN --params SRGAN_params.npz --quantize static
+  python -m sr_torch.serve --model_name LapSRN --params LapSRN_params.npz --net_scale 4 --scale_factor 2
 """
 
 from __future__ import annotations
@@ -102,7 +106,8 @@ class SRService:
                  scale_factor: int | None = None, fused: bool = True,
                  num_channels: int | None = None,
                  quantize: bool | str = False, calib_headroom: float = 1.25,
-                 max_inflight: int = 16, device: str = "cuda"):
+                 max_inflight: int = 16, device: str = "cuda",
+                 net_scale: int | None = None):
         if artifact is not None:
             raise NotImplementedError(
                 "artifact mode lands in a later port slice")
@@ -116,6 +121,9 @@ class SRService:
         self.num_channels = num_channels
         self.quantize = quantize
         self.calib_headroom = calib_headroom
+        # a pyramid model trained at net_scale can serve a smaller
+        # scale_factor from its intermediate level (LapSRN)
+        self.net_scale = net_scale
         self.device = resolve_device(device)
         self.stats = ServeStats()
         self.max_body_bytes = 64 << 20
@@ -129,6 +137,7 @@ class SRService:
             "mode": self.mode,
             "model_name": self.model_name,
             "scale_factor": self.scale_factor,
+            "net_scale": self.net_scale,
             "fused": self.fused,
             "quantize": self.quantize,
             "device": str(self.device),
@@ -143,7 +152,7 @@ class SRService:
                        num_channels=self.num_channels, fused=self.fused,
                        quantize=self.quantize,
                        calib_headroom=self.calib_headroom,
-                       device=self.device)
+                       net_scale=self.net_scale, device=self.device)
 
     def upscale_bytes(self, data: bytes) -> bytes:
         from PIL import Image
@@ -262,6 +271,10 @@ def main(argv=None) -> int:
     p.add_argument("--scale_factor", type=int, default=None,
                    help="model scale (default 4)")
     p.add_argument("--num_channels", type=int, default=None)
+    p.add_argument("--net_scale", type=int, default=None,
+                   help="pyramid models (LapSRN): the scale the params were "
+                        "trained at; serve a smaller --scale_factor from "
+                        "its intermediate level")
     p.add_argument("--no_fused", action="store_true",
                    help="serve the exact graph instead of the fast tail")
     p.add_argument("--quantize", nargs="?", const="dynamic", default=False,
@@ -289,6 +302,7 @@ def main(argv=None) -> int:
         num_channels=a.num_channels,
         quantize=a.quantize, calib_headroom=a.calib_headroom,
         max_inflight=a.max_inflight, device=a.device,
+        net_scale=a.net_scale,
     )
     httpd = make_server(service, a.port, a.host)
     print(f"serving {service.info()} on {a.host}:{httpd.server_address[1]}")

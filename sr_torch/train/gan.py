@@ -88,7 +88,7 @@ class GANTrainer:
             model = model.to(self.device)
             tx = self.spec.make_tx(self.cfg)
             states.append(TrainState(model=model,
-                                     optimizer=tx.init(model.parameters()),
+                                     optimizer=tx.init(model),
                                      tx=tx, generator=gen))
         return states[0], states[1]
 

@@ -13,15 +13,25 @@ L2 weight decay added to the gradient before the update
 (``optax.add_decayed_weights`` chained before ``adam``/``sgd``, DRCN and
 VDSR) is the ``weight_decay`` of ``torch.optim.Adam`` and ``SGD``, which add
 ``wd · p`` to the gradient before the moments, not decoupled AdamW decay.
+
+``optax.multi_transform`` over one optimizer at several learning rates
+(FSRCNN's deconv at 0.1× the base, ``sr/models/fsrcnn.py:_make_tx``) is
+:func:`with_lr_groups`: a labeller maps each top-level child of the model to
+a group, each group is a ``torch.optim`` parameter group with an
+``lr_mult``, and :meth:`Recipe.step` sets each group's rate to
+``schedule(count) · lr_mult``, so no group silently trains at the base
+rate.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
 import numpy as np
 import torch
+from torch import nn
 
 Schedule = Callable[[int], float]
 
@@ -45,19 +55,53 @@ def step_decay_schedule(base_lr: float, steps_per_epoch: int,
 Clip = Callable[[list[torch.Tensor], int], torch.Tensor]
 
 
+#: ``model -> {top-level child name: group name}``
+Labeller = Callable[[nn.Module], dict[str, str]]
+
+
 @dataclass(frozen=True)
 class Recipe:
     """An optimizer factory ``(params, lr) -> torch.optim.Optimizer``, its
-    per-step schedule and an optional gradient clip."""
+    per-step schedule, an optional gradient clip, and optional parameter
+    groups: ``groups`` maps a group's name to its learning-rate multiplier
+    and ``label`` assigns each top-level child of the model to a group."""
 
     build: Callable[[Iterable[torch.nn.Parameter], float],
                     torch.optim.Optimizer]
     schedule: Schedule
     clip: Clip | None = None
+    groups: dict[str, float] | None = None
+    label: Labeller | None = None
 
-    def init(self, params: Iterable[torch.nn.Parameter]
+    def init(self, model: nn.Module | Iterable[torch.nn.Parameter]
              ) -> torch.optim.Optimizer:
-        return self.build(params, self.schedule(0))
+        """The optimizer over ``model``'s parameters (or a bare iterable of
+        parameters, for a recipe without groups), each group at
+        ``schedule(0) · lr_mult``."""
+        lr0 = self.schedule(0)
+        params = model.parameters() if isinstance(model, nn.Module) else model
+        if self.groups is not None:
+            if not isinstance(model, nn.Module):
+                raise TypeError("a recipe with parameter groups labels a "
+                                "model: pass the module, not its parameters")
+            params = self._param_groups(model)
+        optimizer = self.build(params, lr0)
+        for group in optimizer.param_groups:
+            group.setdefault("lr_mult", 1.0)
+            group["lr"] = lr0 * group["lr_mult"]
+        return optimizer
+
+    def _param_groups(self, model: nn.Module) -> list[dict]:
+        labels = self.label(model)
+        members: dict[str, list] = {g: [] for g in self.groups}
+        for name, p in model.named_parameters():
+            top = name.split(".")[0]
+            if top not in labels or labels[top] not in members:
+                raise ValueError(f"parameter {name}: its top-level child "
+                                 f"{top!r} has no group of {list(members)}")
+            members[labels[top]].append(p)
+        return [{"params": ps, "lr_mult": self.groups[g], "group": g}
+                for g, ps in members.items() if ps]
 
     def step(self, optimizer: torch.optim.Optimizer, count: int
              ) -> torch.Tensor | None:
@@ -71,7 +115,7 @@ class Recipe:
                                if p.grad is not None], count)
         lr = self.schedule(count)
         for group in optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_mult", 1.0)
         optimizer.step()
         return scale
 
@@ -84,6 +128,15 @@ def adam(lr: float | Schedule, b1: float = 0.9, b2: float = 0.999,
     return Recipe(lambda params, lr0: torch.optim.Adam(
         params, lr=lr0, betas=(b1, b2), eps=1e-8,
         weight_decay=weight_decay), schedule)
+
+
+def with_lr_groups(recipe: Recipe, groups: dict[str, float],
+                   label: Labeller) -> Recipe:
+    """``recipe`` over parameter groups (``optax.multi_transform`` of one
+    optimizer at several rates): ``groups`` maps each group to its
+    learning-rate multiplier, ``label`` each top-level child of the model
+    to a group."""
+    return dataclasses.replace(recipe, groups=dict(groups), label=label)
 
 
 def adjustable_grad_clip(theta: float, schedule: Schedule) -> Clip:

@@ -5,7 +5,9 @@ Port of ``sr/train/trainer.py`` for one device. A :class:`Trainer` reads a
 GAN spec, SRGAN, it trains the generator on the spec's content loss, as
 the JAX ``Trainer`` does; ``sr_torch/train/gan.py`` runs the adversarial
 recipe): the train step (forward, loss in float32, backward, the recipe's
-optimizer update at its per-step learning rate), K steps per dispatch with
+optimizer update at its per-step learning rate, each parameter group's
+scaled by its multiplier: the recipe labels the model it is handed, as
+FSRCNN's puts its deconv tail at 0.1×), K steps per dispatch with
 the batches drawn on the device, an eval-mode predict, and the epoch loop
 with full-state checkpoints and exact resume.
 
@@ -18,8 +20,10 @@ the host runs ahead and reads the averaged metrics once per dispatch.
 Training runs the convs through cuDNN and the pixel shuffle through its
 kernel (with the plain backward of ``sr_torch/kernels/depth_to_space.py``);
 ``predict`` runs without grad in eval mode, so EDSR's body takes the fused
-resblock kernel, DRCN returns its ensemble only and batch norms
-(SRResNet) use their running statistics. A train step's forward runs in
+resblock kernel, DRCN and LapSRN return their last output only (in
+training, the tuple that their losses take: DRCN's recursions, LapSRN's
+levels, whose losses appear in the metrics as ``loss_x2``, ``loss_x4``) and
+batch norms (SRResNet) use their running statistics. A train step's forward runs in
 train mode: batch norms normalize with the batch's statistics and update
 their running ones, once a step. A recipe's gradient clip (VDSR) reports
 its scale as the ``clip_scale`` metric. Entry points run on
@@ -97,7 +101,7 @@ class Trainer:
         tx = self.spec.make_tx(self.cfg)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(g_seed))
-        return TrainState(model=model, optimizer=tx.init(model.parameters()),
+        return TrainState(model=model, optimizer=tx.init(model),
                           tx=tx, generator=generator)
 
     def num_params(self, state: TrainState) -> int:

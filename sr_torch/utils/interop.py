@@ -3,7 +3,12 @@
 The port keeps its own copy of the mapping that ``sr/utils/torch_interop.py``
 applies. A flax param path maps one-to-one onto a torch module path: list
 indices join their list's name with ``_`` (``blocks.0.Conv_0`` ↔
-``blocks_0/Conv_0``), conv kernels go from flax HWIO to torch OIHW, dense
+``blocks_0/Conv_0``), conv kernels go from flax HWIO to torch OIHW, a
+transposed conv's kernel from flax's unflipped HW-in-out to torch's
+``(in, out, kh, kw)`` flipped in space (``sr/utils/torch_interop.py``: a
+torch ``ConvTranspose2d`` transposes a cross-correlation, flax's
+``ConvTranspose`` correlates the dilated input with the kernel as it is),
+dense
 kernels from flax (in, out) to torch's (out, in) ``nn.Linear`` weight, and
 biases are copied as they are. A parameter that belongs to no conv or dense
 layer (DRCN's ``recursion_weights``, a PReLU's ``slope``, a batch norm's
@@ -31,15 +36,20 @@ def flax_path(torch_name: str) -> tuple[str, ...]:
     return tuple(out)
 
 
-_LAYERS = (nn.Conv2d, nn.Linear)
+_LAYERS = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
 
 
-def _to_torch_kernel(kernel: torch.Tensor) -> torch.Tensor:
-    """flax HWIO → OIHW, or a dense (in, out) → (out, in)."""
+def _to_torch_kernel(kernel: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """flax HWIO → OIHW; a transposed conv's HWIO → its spatial flip as
+    (in, out, kh, kw); a dense (in, out) → (out, in)."""
+    if isinstance(layer, nn.ConvTranspose2d):
+        return kernel.flip(0, 1).permute(2, 3, 0, 1)
     return kernel.permute(3, 2, 0, 1) if kernel.dim() == 4 else kernel.T
 
 
-def _to_flax_kernel(weight: torch.Tensor) -> torch.Tensor:
+def _to_flax_kernel(weight: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    if isinstance(layer, nn.ConvTranspose2d):
+        return weight.permute(2, 3, 0, 1).flip(0, 1)
     return weight.permute(2, 3, 1, 0) if weight.dim() == 4 else weight.T
 
 
@@ -124,7 +134,7 @@ def from_jax_params(model: nn.Module, params: dict,
             for p in path:
                 node = node[p]
             kernel = torch.from_numpy(np.array(node["kernel"], np.float32))
-            weight = _to_torch_kernel(kernel)
+            weight = _to_torch_kernel(kernel, layer)
             if weight.shape != layer.weight.shape:
                 raise ValueError(f"{'/'.join(path)}/kernel: flax "
                                  f"{tuple(kernel.shape)} does not fit torch "
@@ -165,8 +175,8 @@ def to_jax_params(model: nn.Module) -> dict:
         node = params
         for p in path:
             node = node.setdefault(p, {})
-        node["kernel"] = _to_flax_kernel(layer.weight.detach()).cpu().numpy(
-        ).copy()
+        node["kernel"] = _to_flax_kernel(layer.weight.detach(),
+                                         layer).cpu().numpy().copy()
         if layer.bias is not None:
             node["bias"] = layer.bias.detach().cpu().numpy().copy()
     return _put(params, _bare(model, buffers=False))

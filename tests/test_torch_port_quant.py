@@ -251,10 +251,14 @@ def test_quantized_apply_with_random_biases_equals_jax_bit_for_bit(mode,
 def test_quantized_apply_refuses_what_no_port_model_has():
     for conv in (torch.nn.Conv2d(4, 4, 3, stride=2, padding=1),
                  torch.nn.Conv2d(4, 4, 3, padding=1, groups=2),
-                 torch.nn.Conv2d(4, 4, 2, padding=1),
-                 torch.nn.ConvTranspose2d(4, 4, 4, stride=2, padding=1)):
+                 torch.nn.Conv2d(4, 4, 2, padding=1)):
         with pytest.raises(NotImplementedError, match="later port slice"):
             quant.int8_conv(torch.zeros((1, 4, 6, 6)), conv)
+    # a transposed conv runs int8 through int8_deconv since FSRCNN and
+    # LapSRN's slice (tests/test_torch_lapsrn_serve.py), never int8_conv
+    with pytest.raises(TypeError, match="int8_deconv"):
+        quant.int8_conv(torch.zeros((1, 4, 6, 6)), torch.nn.ConvTranspose2d(
+            4, 4, 4, stride=2, padding=1))
 
 
 def test_interceptor_sees_every_conv_once_per_forward():

@@ -113,10 +113,11 @@ def test_upscale_refuses_what_a_later_slice_brings(edsr_params, tmp_path):
         SRConfig(model_name="SRCNN"), torch.Generator().manual_seed(0))))
     assert upscale(_img(3), "SRCNN", path, dtype="float32",
                    device="cpu").shape == (56, 44, 3)
-    # net_scale (a pyramid model's level, LapSRN) still waits, for every
-    # input convention
+    # net_scale serves a pyramid model's level since LapSRN's slice
+    # (tests/test_torch_lapsrn_serve.py); a model without levels is
+    # refused, for every input convention, as sr.infer refuses it
     for name, params in (("EDSR", edsr_params), ("SRCNN", path)):
-        with pytest.raises(NotImplementedError, match="later port slice"):
+        with pytest.raises(ValueError, match="no intermediate scales"):
             upscale(_img(3), name, params, scale_factor=2, net_scale=4,
                     device="cpu")
     with pytest.raises(ValueError, match="quantize must be"):

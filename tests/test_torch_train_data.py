@@ -65,14 +65,18 @@ def test_synthetic_dataset_bit_for_bit():
             np.testing.assert_array_equal(port[i], ref[i])
 
 
-def test_get_training_set_synthetic_only():
+def test_get_training_set_synthetic_only(tmp_path):
     ds = get_training_set("./data", "synthetic")
     assert (len(ds), ds.size, ds.seed) == (32, (160, 160), 0)
     np.testing.assert_array_equal(ds[3], JaxSyntheticDataset(32, (160, 160),
                                                              seed=0)[3])
-    for name in ("bsds300", ["synthetic", "bsds300"], "procedural"):
-        with pytest.raises(NotImplementedError, match="later port slice"):
-            get_training_set("./data", name)
+    # the folder and procedural corpora serve since FSRCNN and LapSRN's
+    # slice (tests/test_torch_lapsrn_train.py); 'synthetic' stands alone,
+    # and BSDS300 is never downloaded
+    with pytest.raises(ValueError, match="standalone"):
+        get_training_set("./data", ["synthetic", "bsds300"])
+    with pytest.raises(RuntimeError, match="never downloads"):
+        get_training_set(str(tmp_path), "bsds300")
 
 
 def test_stack_corpus_equals_jax():
