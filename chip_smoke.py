@@ -174,6 +174,25 @@ Phases; any failure raises and exits non-zero without the final line:
    images/s; (f) MP/s at b16 128² → 512² on Y by route (bf16 exact, int8
    static, int8 static with quantize_deconv, int8 dynamic), reported. Each
    path's counts are zeroed just before it and read just after.
+13. Export, artifact serving and the D4 self-ensemble (EDSR ×4 at full
+   width, bf16, phase 4's seeded weights): four bundles at buckets 64 and
+   128 through ``python -m sr_torch.export`` in parallel processes (bf16
+   exact, bf16 fused, int8 static fused calibrated on two synthetic PNGs,
+   bf16 fused with the ensemble baked in); a fresh process loads them with
+   no ``sr_torch.models`` or ``sr_torch.nn`` imported and runs b1 and b16,
+   bit for bit against the eager routes (else at most 1 u8 level, said)
+   with the eager launches a call (2+16, 1+16, 1 shuffle + 35 int8, 8+128);
+   the main path (each artifact at b1 and b16 in this process, the counts
+   zeroed just before and read just after); each kernel against its plain
+   version at the arguments captured inside the programs (a dispatch
+   mode), timed as in phase 3; the bf16 exact program exported on the CPU
+   and moved to the card == the card's; the int8 bundle over HTTP, 16
+   concurrent requests in one bucket in fewer program calls, each == a
+   direct call; an ESPCN ×4 int8-static bundle on Y through the server's
+   luma and chroma path == model mode's ``upscale``; f32
+   ``upscale(self_ensemble=True)`` card vs CPU and tiled vs whole ≤ 1
+   level; MP/s at b16 128² → 512² of each artifact against its eager route
+   (eager, artifact, artifact, eager), reported.
 
 It prints the bench's JSON line, a ``{"kernels": [...]}`` JSON line, then
 the card line, then as its last line ``{"ok": true, "device": {...}}``.
@@ -2387,10 +2406,11 @@ class _Tally:
 
     def __enter__(self):
         from sr_torch import quant
-        from sr_torch.kernels import depth_to_space as d2s_mod
+        from sr_torch.kernels import ops
 
+        # the shuffle wrapper calls its operator through this name
         self._d2s, self._int8 = real_d2s, real_int8 = (
-            d2s_mod._forward, quant.conv_int8_fused)
+            ops._d2s_op, quant.conv_int8_fused)
 
         def d2s_seen(x, r, act, bias):
             if x.is_cuda:
@@ -2402,14 +2422,14 @@ class _Tally:
                 self.int8[(*x.shape, q_w.shape[-1], q_w.shape[0])] += 1
             return real_int8(x, q_w, *args, **kwargs)
 
-        d2s_mod._forward, quant.conv_int8_fused = d2s_seen, int8_seen
+        ops._d2s_op, quant.conv_int8_fused = d2s_seen, int8_seen
         return self
 
     def __exit__(self, *exc):
         from sr_torch import quant
-        from sr_torch.kernels import depth_to_space as d2s_mod
+        from sr_torch.kernels import ops
 
-        d2s_mod._forward, quant.conv_int8_fused = self._d2s, self._int8
+        ops._d2s_op, quant.conv_int8_fused = self._d2s, self._int8
 
 
 def _zero_counts() -> dict:
@@ -4059,6 +4079,603 @@ def phase_fsrcnn_lapsrn(card: str) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------------
+# phase 13: export, artifact serving and the D4 self-ensemble
+# ----------------------------------------------------------------------
+
+#: phase 13's EDSR ×4 bundles (bf16 model, buckets ART_BUCKETS): (file
+#: name, route, fused, quantize, the ensemble baked in) and the launches of
+#: (shuffle, resblock, fused int8 conv) one artifact call makes, the eager
+#: route's
+ART_ROUTES = (
+    ("bf16_exact", "bf16 exact", False, False, False, (2, 16, 0)),
+    ("bf16_fused", "bf16 fused", True, False, False, (1, 16, 0)),
+    ("int8_static_fused", "int8 static fused", True, "static", False,
+     (1, 0, 35)),
+    ("bf16_fused_ensemble", "bf16 fused + ensemble", True, False, True,
+     (8, 128, 0)),
+)
+ART_BUCKETS = (64, 128)
+ART_BATCHES = (1, 16)
+
+#: run in a fresh process: load every bundle onto the card with no model
+#: code, call the 128 bucket at each batch with the launch counts zeroed
+#: just before and read just after, save the outputs, report the port's
+#: model modules (and JAX's) found in sys.modules
+_ART_CHILD = r"""
+import json, sys
+import torch
+from sr_torch.export import load_bundle
+from sr_torch.kernels import ops
+
+out_dir, names = sys.argv[1], json.loads(sys.argv[2])
+xs = torch.load(out_dir + "/inputs.pt")
+counters = (ops.depth_to_space, ops.fused_resblock, ops.conv_int8_fused)
+outs, counts = {}, {}
+for name in names:
+    meta, buckets = load_bundle(f"{out_dir}/{name}.srtbundle", device="cuda")
+    fn = buckets[-1][2]
+    for b, x in xs.items():
+        for c in counters:
+            c.launches = 0
+        y = fn(x.cuda())
+        torch.cuda.synchronize()
+        counts[f"{name} b{b}"] = [c.launches for c in counters]
+        outs[f"{name} b{b}"] = y.cpu()
+torch.save(outs, out_dir + "/outputs.pt")
+bad = sorted(m for m in sys.modules
+             if m.startswith(("sr_torch.models", "sr_torch.nn"))
+             or m.split(".")[0] in ("jax", "flax", "sr"))
+print(json.dumps({"counts": counts, "model_modules": bad}))
+"""
+
+
+class _OpCapture:
+    """Inside ``with``, records the arguments of the first call of each
+    ``sr_torch`` operator at each distinct input shape and type (a
+    ``TorchDispatchMode``: it sees the calls an exported program makes)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen: dict = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.name()
+                if name.startswith("sr_torch::"):
+                    x = args[0]
+                    shapes = tuple(tuple(a.shape) for a in args[1:]
+                                   if isinstance(a, torch.Tensor))
+                    seen.setdefault((name.split("::")[1], tuple(x.shape),
+                                     x.dtype, shapes), args)
+                return func(*args, **(kwargs or {}))
+
+        self.seen, self._mode = seen, Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def _captured_row(card: str, key, args, launches: int, route: str) -> dict:
+    """One kernel at the arguments an artifact gave it: the operator's
+    CUDA implementation against its plain version (exact, or the
+    resblock's 2e-2), times of both, the library call and the bound.
+    Returns the kernels-line row."""
+    from sr_torch.kernels import ops
+
+    name, shape, dtype, _ = key
+    op = getattr(torch.ops.sr_torch, name)
+    if name == "depth_to_space":
+        x, r, act, bias = args
+        plain = functools.partial(ops.depth_to_space_plain, x, r, act, bias)
+        xc = (x if bias is None else x + bias).permute(0, 3, 1, 2)
+        library = functools.partial(F.pixel_shuffle, xc, r)
+        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        by, tol = "bytes", 0.0
+        source, replaces = ("sr_torch/kernels/csrc/depth_to_space.cu",
+                            "sr/kernels/depth_to_space.py:73")
+        desc = f"r={r} bias={bias is not None}"
+    elif name == "fused_resblock":
+        x, w1, b1, w2, b2, res = args
+        plain = functools.partial(ops.fused_resblock_plain, *args)
+        c = x.shape[-1]
+        u1, u2 = (ops.unpack_wgmma_weights(w, c) for w in (w1, w2))
+        library = _resblock_library(x, u1, b1, u2, b2, res)
+        bound, by = _resblock_bound(x)
+        tol = TOL[x.dtype]
+        source, replaces = ("sr_torch/kernels/csrc/fused_resblock.cu",
+                            "sr/kernels/fused_resblock.py:119")
+        desc = f"res_scale={res}"
+    else:
+        x, q_w, scale, dequant, bias, rec, packed = args
+        plain = functools.partial(ops.conv_int8_fused_plain, x, q_w, scale,
+                                  dequant, bias, rec)
+        b, h, w, c = x.shape
+        k, n = q_w.shape[0], q_w.shape[-1]
+        q_x = torch.clamp(torch.round(x * scale if rec else x / scale),
+                          -127, 127).to(torch.int8)
+        a, wm = _int_mm_operands(q_x, q_w)
+        library = functools.partial(torch._int_mm, a, wm)
+        t_ops = 2 * b * h * w * k * k * c * n / PEAK_FLOPS[torch.int8] * 1e3
+        t_bytes = ((4 * b * h * w * c + k * k * c * n + 4 * b * h * w * n)
+                   / HBM_BYTES_PER_S * 1e3)
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        tol = 0.0
+        source, replaces = ("sr_torch/kernels/csrc/int8_conv.cu",
+                            "sr/kernels/int8_conv.py:75")
+        desc = f"->{n} k={k} reciprocal={rec}"
+    got, want = op(*args), plain()
+    err = float((got.double() - want.double()).abs().max())
+    check(got.dtype == want.dtype and err <= tol,
+          f"{name} {shape} in the {route} artifact differs from its plain "
+          f"version: {err} (tol {tol})")
+    del got, want
+    t_k = kernel_ms(lambda: op(*args))
+    t_p = kernel_ms(plain, n=5, reps=3)
+    t_l = kernel_ms(library, n=10, reps=3)
+    print(f"[13] {name} {shape} {str(dtype)[6:]} {desc} ({route} artifact, "
+          f"{launches} launches on the path): kernel {t_k:.4f} ms, plain "
+          f"{t_p:.4f} ms, library {t_l:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"max |kernel - plain| {err:.3g} (tol {tol}) | {card}")
+    return dict(name="int8_conv" if name == "conv_int8_fused" else name,
+                route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=t_k, plain_ms=t_p,
+                bound_ms=bound, bound_by=by, library_ms=t_l,
+                shape=list(shape) + ([n, k] if name == "conv_int8_fused"
+                                     else []),
+                dtype=str(dtype)[6:], path=f"phase 13 {route} artifact")
+
+
+def _art_export_start(out_dir: Path, path: Path, calib_pngs) -> dict:
+    """(a) Every bundle of ART_ROUTES through ``python -m
+    sr_torch.export`` on the card, the processes at once (tracing is host
+    work); the int8 one calibrated on ``calib_pngs``. Returns ``{file
+    name: (process, bundle path)}``."""
+    procs = {}
+    for slug, _, fused, quant, ens, _ in ART_ROUTES:
+        art = out_dir / f"{slug}.srtbundle"
+        cmd = [sys.executable, "-m", "sr_torch.export", "--model_name",
+               "EDSR", "--params", str(path), "--out", str(art),
+               "--lr_size", *map(str, ART_BUCKETS), "--device", "cuda"]
+        cmd += ["--fused"] if fused else []
+        cmd += (["--quantize", quant, "--calib_image", *map(str, calib_pngs)]
+                if quant else [])
+        cmd += ["--self_ensemble"] if ens else []
+        procs[slug] = (subprocess.Popen(cmd, cwd=ROOT, text=True,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE), art)
+    return procs
+
+
+def _art_export_wait(procs: dict, t0: float) -> dict:
+    """Wait for :func:`_art_export_start`'s processes; every one must
+    have written its bundle. Returns ``{file name: bundle path}``."""
+    from sr_torch.export import _BUNDLE_MAGIC
+
+    arts = {}
+    for slug, route, *_ in ART_ROUTES:
+        proc, art = procs[slug]
+        out, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0 and art.exists(),
+              f"python -m sr_torch.export ({route}) failed:\n{out}\n"
+              f"{err[-4000:]}")
+        check(art.read_bytes()[:len(_BUNDLE_MAGIC)] == _BUNDLE_MAGIC,
+              f"{art} is not a bundle")
+        arts[slug] = art
+        print(f"[13] python -m sr_torch.export ({route}): "
+              f"{out.strip().splitlines()[-1]}; "
+              f"{art.stat().st_size / 2 ** 20:.1f} MiB")
+    print(f"[13] the {len(procs)} export processes ran at once: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return arts
+
+
+def _art_eager(path: Path, calib) -> dict:
+    """The eager predict of each route, on the card, from the same .npz."""
+    from sr_torch.eval.ensemble import make_self_ensemble_predict
+    from sr_torch.infer import make_serving_predict
+    from sr_torch.utils.checkpoint import load_params
+    from sr_torch.utils.interop import from_jax_params
+
+    _, model = _seeded_edsr("bfloat16")
+    model = from_jax_params(model, load_params(str(path))[0]).cuda().eval()
+    calib_t = [torch.from_numpy(c).cuda() for c in calib]
+    eager = {}
+    for slug, _, fused, quant, ens, _ in ART_ROUTES:
+        fn = make_serving_predict(model, fused, quant, calib_headroom=1.0,
+                                  calib_batches=calib_t if quant else None)
+        eager[slug] = make_self_ensemble_predict(fn) if ens else fn
+    return eager
+
+
+def _art_isolated_start(out_dir: Path, xs: dict):
+    """(b) A fresh process loads every bundle with no model code and runs
+    it at b1 and b16 (:data:`_ART_CHILD`); returns the process."""
+    torch.save(xs, out_dir / "inputs.pt")
+    slugs = [r[0] for r in ART_ROUTES]
+    return subprocess.Popen([sys.executable, "-c", _ART_CHILD, str(out_dir),
+                             json.dumps(slugs)], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _art_isolated_check(proc, out_dir: Path, xs: dict, eager: dict,
+                        t0: float) -> None:
+    """The fresh process's outputs against the eager routes (bit for bit,
+    else at most 1 u8 level, said), its launches per call the eager
+    route's and the expected ones."""
+    from sr_torch.kernels import ops
+    from sr_torch.quant import to_u8
+
+    stdout, stderr = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"the artifact loader failed:\n{stdout}"
+          f"\n{stderr[-4000:]}")
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    print(f"[13] fresh process: loaded {len(ART_ROUTES)} bundles and ran "
+          f"b1/b16 in {time.perf_counter() - t0:.1f} s; model modules "
+          f"imported: {rec['model_modules']}")
+    check(rec["model_modules"] == [],
+          f"loading an artifact imported model code: {rec['model_modules']}")
+    outs = torch.load(out_dir / "outputs.pt")
+    counters = (ops.depth_to_space, ops.fused_resblock, ops.conv_int8_fused)
+    for slug, route, *_, want_counts in ART_ROUTES:
+        for b, x in xs.items():
+            got = outs[f"{slug} b{b}"]
+            for c in counters:
+                c.launches = 0
+            with torch.inference_mode():
+                want = eager[slug](x.cuda()).cpu()
+            eager_counts = [c.launches for c in counters]
+            art_counts = rec["counts"][f"{slug} b{b}"]
+            exact = torch.equal(got, want)
+            lv = int((to_u8(got).int() - to_u8(want).int()).abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            print(f"[13] {route} b{b}: artifact vs eager "
+                  f"{'bit for bit' if exact else f'max |diff| {err:.3g}'}, "
+                  f"{lv} u8 levels; launches a call (shuffle, resblock, "
+                  f"int8) artifact {art_counts}, eager {eager_counts}")
+            top = 4 * ART_BUCKETS[-1]
+            check(got.shape == want.shape == (b, top, top, 3)
+                  and got.dtype == want.dtype and lv <= 1,
+                  f"{route} artifact differs from eager at b{b}: {lv}")
+            check(art_counts == eager_counts == list(want_counts),
+                  f"{route} launches {art_counts} / {eager_counts}, want "
+                  f"{list(want_counts)}")
+
+
+def _art_main_path(loaded: dict, xs: dict) -> dict:
+    """(c) The phase's main path in this process: each loaded bundle's 128
+    bucket at b1 and b16, the counts zeroed just before and read just
+    after; each kernel must have run."""
+    from sr_torch.kernels import ops
+
+    counters = {"depth_to_space": ops.depth_to_space,
+                "fused_resblock": ops.fused_resblock,
+                "int8_conv": ops.conv_int8_fused}
+    for c in counters.values():
+        c.launches = 0
+    for slug, *_ in ART_ROUTES:
+        for x in xs.values():
+            loaded[slug][-1][2](x.cuda())
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[13] main path (4 artifacts x b1, b16) launches: {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel did not run inside the artifacts: {launches}")
+    return launches
+
+
+def _art_kernel_rows(card: str, loaded: dict, x16, launches: dict):
+    """(d) Each kernel at the arguments the artifacts give it at b16
+    (captured inside the programs), against its plain version, timed."""
+    rows, done = [], set()
+    for slug, route, *_ in ART_ROUTES[:3]:
+        cap = _OpCapture()
+        with cap, torch.inference_mode():
+            loaded[slug][-1][2](x16)
+        for key, args in cap.seen.items():
+            if key in done:
+                continue
+            done.add(key)
+            name = "int8_conv" if key[0] == "conv_int8_fused" else key[0]
+            rows.append(_captured_row(card, key, args, launches[name],
+                                      route))
+        del cap
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _art_cpu_export(card: str, path: Path, out_dir: Path) -> None:
+    """(e) bf16 exact exported on the CPU at the smallest bucket, for
+    :func:`_art_cpu_vs_card`."""
+    from sr_torch.export import export_bundle, save_bundle
+
+    t0 = time.perf_counter()
+    meta, programs = export_bundle("EDSR", str(path), dtype="bfloat16",
+                                   lr_sizes=(ART_BUCKETS[0],), device="cpu")
+    save_bundle(str(out_dir / "bf16_exact_cpu.srtbundle"), meta, programs)
+    print(f"[13] bf16 exact exported on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _art_cpu_vs_card(card: str, arts: dict) -> None:
+    """The CPU's bf16 exact program loaded onto the card (moved): the same
+    constants, so equal to the card's export bit for bit."""
+    from sr_torch.export import load_bundle
+
+    cpu_art = arts["bf16_exact"].with_name("bf16_exact_cpu.srtbundle")
+    moved = load_bundle(str(cpu_art), device="cuda")[1][0][2]
+    native = load_bundle(str(arts["bf16_exact"]), device="cuda")[1][0][2]
+    side = ART_BUCKETS[0]
+    g = torch.Generator(device="cuda").manual_seed(131)
+    for b in ART_BATCHES:
+        x = torch.rand((b, side, side, 3), device="cuda", generator=g)
+        check(torch.equal(moved(x), native(x)),
+              f"the CPU export moved to the card differs at b{b}")
+    print(f"[13] bf16 exact exported on the CPU, moved to the card: == the "
+          f"card's export at b{ART_BATCHES[0]}, b{ART_BATCHES[-1]} | {card}")
+
+
+def _art_http(card: str, arts: dict) -> None:
+    """(f) The int8 bundle over HTTP: 16 concurrent requests in the 128
+    bucket share fewer program calls than requests, each response equal
+    to a direct call of the program."""
+    import threading
+
+    from PIL import Image
+
+    from sr_torch.export import load_bundle
+    from sr_torch.serve import SRService, serve_background
+
+    service = SRService(artifact=str(arts["int8_static_fused"]),
+                        linger_ms=100.0, device="cuda")
+    fn = load_bundle(str(arts["int8_static_fused"]), device="cuda")[1][-1][2]
+    rng = np.random.default_rng(132)
+    top = ART_BUCKETS[-1]
+    sizes = [(top, top), (top - top // 16, top - top // 5),
+             (top - top // 4, top), (top, ART_BUCKETS[-2] + 1)] * 4
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in sizes]
+    httpd, port = serve_background(service)
+    results = [None] * len(imgs)
+
+    def post(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/upscale", body=_png(imgs[i]))
+        resp = conn.getresponse()
+        results[i] = (resp.status, resp.read())
+        conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(imgs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    seconds = time.perf_counter() - t0
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/metrics")
+    metrics = json.loads(conn.getresponse().read())
+    conn.close()
+    httpd.shutdown()
+    httpd.server_close()
+    check(all(r is not None and r[0] == 200 for r in results),
+          f"HTTP artifact requests failed: "
+          f"{[r if r is None else (r[0], r[1][:200]) for r in results]}")
+    for img, (_, body) in zip(imgs, results):
+        h, w = img.shape[:2]
+        x = np.pad(img.astype(np.float32) / 255.0,
+                   ((0, top - h), (0, top - w), (0, 0)), mode="edge")
+        direct = fn(x[None])[0, :4 * h, :4 * w].cpu().numpy()
+        direct = np.clip(np.round(direct * 255.0), 0, 255).astype(np.uint8)
+        check(np.array_equal(np.asarray(Image.open(io.BytesIO(body))),
+                             direct),
+              "an HTTP response differs from a direct artifact call")
+    print(f"[13] HTTP int8 bundle: {len(imgs)} concurrent requests in the "
+          f"{top} bucket took {service.batcher.dispatches} program calls "
+          f"({service.batcher.batched_requests} batched) in {seconds:.2f} s; "
+          f"each == a direct call; /metrics {metrics} | {card}")
+    check(service.batcher.dispatches < len(imgs),
+          f"micro-batching made {service.batcher.dispatches} calls for "
+          f"{len(imgs)} requests")
+
+
+def _art_espcn(card: str, out_dir: Path) -> None:
+    """(g) ESPCN ×4 on Y, int8 static, as a bundle served over HTTP: an
+    RGB request's luma through the program, its chroma
+    ``resize_bicubic_u8``'s, the output equal to model mode's ``upscale``
+    calibrated on the same luma."""
+    from PIL import Image
+
+    from sr_torch.data.native import resize_bicubic_u8
+    from sr_torch.eval.metrics import rgb_to_ycbcr, ycbcr_to_rgb
+    from sr_torch.export import export_bundle, load_bundle, save_bundle
+    from sr_torch.infer import upscale
+    from sr_torch.models.registry import get_spec
+    from sr_torch.serve import SRService, serve_background
+    from sr_torch.utils.checkpoint import save_params
+    from sr_torch.utils.config import SRConfig
+    from sr_torch.utils.interop import to_jax_params
+
+    model = get_spec("ESPCN").make_model(
+        SRConfig(model_name="ESPCN", num_channels=1),
+        torch.Generator().manual_seed(133))
+    gen = torch.Generator().manual_seed(134)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.02)
+    path = str(out_dir / "ESPCN_x4_seed133.npz")
+    save_params(path, to_jax_params(model))
+
+    def u8(v):
+        return np.clip(np.round(np.asarray(v)), 0, 255).astype(np.uint8)
+
+    img = np.random.default_rng(135).integers(0, 256, (64, 64, 3), np.uint8)
+    ycc = u8(rgb_to_ycbcr(img.astype(np.float32)).numpy())
+    luma = ycc[None, ..., :1].astype(np.float32) / 255.0
+    meta, programs = export_bundle("ESPCN", path, num_channels=1,
+                                   lr_sizes=(32, 64), quantize="static",
+                                   calib_input=[luma], device="cuda")
+    art = out_dir / "espcn_int8_static.srtbundle"
+    save_bundle(str(art), meta, programs)
+    from sr_torch.kernels import ops
+
+    c0, d0 = ops.conv_int8_fused.launches, ops.depth_to_space.launches
+    service = SRService(artifact=str(art), device="cuda")
+    httpd, port = serve_background(service)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/upscale", body=_png(img))
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    httpd.shutdown()
+    httpd.server_close()
+    check(resp.status == 200, f"ESPCN artifact POST: {resp.status} {body}")
+    launches = (ops.conv_int8_fused.launches - c0,
+                ops.depth_to_space.launches - d0)
+    got = np.asarray(Image.open(io.BytesIO(body)))
+    fn = load_bundle(str(art), device="cuda")[1][-1][2]
+    merged = np.concatenate([u8(fn(luma)[0].cpu().numpy() * 255.0),
+                             resize_bicubic_u8(ycc, (256, 256))[..., 1:]],
+                            axis=-1)
+    check(np.array_equal(got, u8(ycbcr_to_rgb(
+        merged.astype(np.float32)).numpy())),
+        "the ESPCN artifact's output is not its luma with the bicubic "
+        "chroma")
+    want = upscale(img, "ESPCN", path, quantize="static", calib_headroom=1.0,
+                   device="cuda")
+    print(f"[13] ESPCN x4 Y int8-static bundle over HTTP: (64, 64) RGB -> "
+          f"{got.shape}, {launches[0]} int8 convs and {launches[1]} shuffle "
+          f"a request; chroma == resize_bicubic_u8; == model mode upscale: "
+          f"{np.array_equal(got, want)} | {card}")
+    check(launches == (3, 1), f"ESPCN artifact launches {launches}")
+    check(np.array_equal(got, want),
+          "the ESPCN artifact differs from model mode's upscale")
+
+
+def _art_upscale_ensemble(card: str, path: Path) -> None:
+    """(h) f32 ``upscale(self_ensemble=True)`` of EDSR on the card against
+    the CPU, and tiled against whole: at most 1 u8 level each."""
+    from sr_torch.infer import upscale
+    from sr_torch.utils.precision import no_tf32
+
+    rng = np.random.default_rng(136)
+    img = rng.integers(0, 256, (44, 36, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    with no_tf32():
+        card_out = upscale(img, "EDSR", str(path), dtype="float32",
+                           self_ensemble=True, tile=None, device="cuda")
+    cpu_out = upscale(img, "EDSR", str(path), dtype="float32",
+                      self_ensemble=True, tile=None, device="cpu")
+    lv = int(np.abs(card_out.astype(int) - cpu_out).max())
+    big = rng.integers(0, 256, (150, 120, 3), dtype=np.uint8)
+    with no_tf32():
+        whole = upscale(big, "EDSR", str(path), dtype="float32",
+                        self_ensemble=True, tile=None, device="cuda")
+        tiled = upscale(big, "EDSR", str(path), dtype="float32",
+                        self_ensemble=True, tile=64, device="cuda")
+    lv_t = int(np.abs(whole.astype(int) - tiled).max())
+    print(f"[13] f32 upscale(self_ensemble=True) EDSR x4: card vs CPU "
+          f"{img.shape[:2]} {lv} u8 levels; tiled (64) vs whole "
+          f"{big.shape[:2]} {lv_t} levels (tol 1 each; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    check(lv <= 1 and lv_t <= 1, "the self-ensemble differs")
+
+
+def _art_throughput(card: str, loaded: dict, eager: dict) -> dict:
+    """(i) MP/s at b16 128² → 512²: each artifact against its eager route
+    in turns (eager, artifact, artifact, eager), and the ensemble's cost
+    against the plain fused route."""
+    b, top = ART_BATCHES[-1], ART_BUCKETS[-1]
+    x = torch.rand((b, top, top, 3), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(137))
+    mp = b * (4 * top) ** 2 / 1e6
+    out = {}
+    with torch.inference_mode():
+        for slug, route, *_ in ART_ROUTES[1:]:
+            art = loaded[slug][-1][2]
+            eag = eager[slug]
+            ms = [time_ms(lambda f=f: f(x), n=10)
+                  for f in (eag, art, art, eag)]
+            e, a = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+            out[route] = (mp / e * 1e3, mp / a * 1e3)
+            print(f"[13] {route} b{b} {top}->{4 * top}: eager {ms[0]:.3f} / "
+                  f"{ms[3]:.3f} ms ({mp / e * 1e3:.1f} MP/s), artifact "
+                  f"{ms[1]:.3f} / {ms[2]:.3f} ms ({mp / a * 1e3:.1f} MP/s), "
+                  f"artifact / eager {e / a:.3f} | {card}")
+    fused, ens = out["bf16 fused"][1], out["bf16 fused + ensemble"][1]
+    print(f"[13] the ensemble costs {fused / ens:.2f}x the fused artifact's "
+          f"time (8 forwards) | {card}")
+    return out
+
+
+def phase_artifacts(card: str) -> list[dict]:
+    """Phase 13: EDSR ×4 at full width exported as multi-bucket bundles
+    (bf16 exact, bf16 fused, int8 static fused, bf16 fused with the
+    ensemble baked in), loaded without model code, served, micro-batched
+    over HTTP and run as the D4 self-ensemble; ESPCN ×4 on Y as an int8
+    static bundle through the server's luma and chroma path. Returns the
+    kernels-line rows at the artifacts' shapes."""
+    from sr_torch.data.datasets import SyntheticDataset
+    from sr_torch.export import load_bundle
+    from sr_torch.utils.checkpoint import save_params
+    from sr_torch.utils.interop import to_jax_params
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke" / "artifacts"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    path = out_dir / "EDSR_x4_seed0.npz"
+    _, model = _seeded_edsr("bfloat16")
+    save_params(str(path), to_jax_params(model))
+    del model
+    # two synthetic images at the smallest bucket calibrate the int8
+    # bundle (the CLI reads them with Pillow; at that size they load as
+    # they are) and the eager int8 route
+    from PIL import Image
+
+    corpus = SyntheticDataset(2, (ART_BUCKETS[0],) * 2, 3, seed=13)
+    pngs = [out_dir / f"calib{i}.png" for i in range(2)]
+    for i, png in enumerate(pngs):
+        Image.fromarray(corpus[i]).save(png)
+    calib = [(np.asarray(Image.open(png), np.float32) / 255.0)[None]
+             for png in pngs]
+    t_exp = time.perf_counter()
+    procs = _art_export_start(out_dir, path, pngs)
+    # while they trace: what needs no bundle of theirs
+    eager = _art_eager(path, calib)
+    _art_cpu_export(card, path, out_dir)
+    _art_espcn(card, out_dir)
+    _art_upscale_ensemble(card, path)
+    arts = _art_export_wait(procs, t_exp)
+    _art_cpu_vs_card(card, arts)
+    gen = torch.Generator().manual_seed(138)
+    top = ART_BUCKETS[-1]
+    xs = {b: torch.rand((b, top, top, 3), generator=gen)
+          for b in ART_BATCHES}
+    t_child = time.perf_counter()
+    child = _art_isolated_start(out_dir, xs)
+    # while a fresh process loads them: this process's main path and HTTP
+    loaded = {slug: load_bundle(str(arts[slug]), device="cuda")[1]
+              for slug, *_ in ART_ROUTES}
+    launches = _art_main_path(loaded, xs)
+    _art_http(card, arts)
+    _art_isolated_check(child, out_dir, xs, eager, t_child)
+    # alone on the card: the kernels' rows and the throughput
+    rows = _art_kernel_rows(card, loaded, xs[ART_BATCHES[-1]].cuda(),
+                            launches)
+    _art_throughput(card, loaded, eager)
+    print(f"[13] phase seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
 BENCH_KEYS = ("value", "vs_baseline", "bf16_exact_mps", "bf16_fused_mps",
               "bf16_fused_vs_baseline", "bf16_best_mps")
 
@@ -4164,6 +4781,8 @@ def main() -> int:
     entries += phase_srresnet(card)
     torch.cuda.empty_cache()
     entries += phase_fsrcnn_lapsrn(card)
+    torch.cuda.empty_cache()
+    entries += phase_artifacts(card)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

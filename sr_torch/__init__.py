@@ -20,5 +20,8 @@ and evaluates the pre-upsample family on Y: SRCNN, VDSR and DRCN ×4.
 Slice 10 does so for SRResNet ×4 and trains SRGAN ×4. Slice 11 adds FSRCNN
 and LapSRN ×4 on Y (transposed convs, int8 deconvs, LapSRN's pyramid
 levels through ``net_scale``) and the procedural and folder training
-corpora.
+corpora. Slice 12 makes every kernel a ``torch.library`` operator,
+exports serving routes as ``torch.export`` programs and bundles
+(``python -m sr_torch.export``), serves them with micro-batching
+(``python -m sr_torch.serve --artifact``) and adds the D4 self-ensemble.
 """

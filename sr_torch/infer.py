@@ -21,9 +21,10 @@ A pyramid model (LapSRN) trained at ×``net_scale`` serves each smaller
 power-of-2 scale from its intermediate level
 (:func:`make_pyramid_level_predict`).
 
-Every entry point runs on ``device="cuda"`` unless the caller asks for the
-CPU. ``self_ensemble`` lands in a later port slice and raises
-``NotImplementedError``.
+``self_ensemble`` averages the 8 D4 flips and rotations
+(``sr_torch/eval/ensemble.py``) below the tiling, in float32, before the
+one u8 rounding. Every entry point runs on ``device="cuda"`` unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import numpy as np
 import torch
 
 from sr_torch.data.native import resize_bicubic_u8
+from sr_torch.eval.ensemble import (
+    TRANSFORMS, make_self_ensemble_predict, transform)
 from sr_torch.eval.metrics import rgb_to_ycbcr, ycbcr_to_rgb
 from sr_torch.eval.tiling import RECEPTIVE_FIELD, tiled_predict
 from sr_torch.kernels.fused_tail import (
@@ -48,8 +51,6 @@ from sr_torch.utils.checkpoint import load_params
 from sr_torch.utils.config import SRConfig
 from sr_torch.utils.device import resolve_device
 from sr_torch.utils.interop import from_jax_params
-
-_LATER = "lands in a later port slice"
 
 
 def tail_kind(model) -> str | None:
@@ -215,21 +216,28 @@ def upscale(
     it differs from ``scale_factor``: a pyramid model (LapSRN) then serves
     the matching intermediate level of the one trained net (for example
     ``scale_factor=2, net_scale=4``); other models, other scales and
-    ``quantize`` raise ``ValueError``, as in the JAX package. ``device``
-    defaults to the card; pass ``"cpu"`` for the plain PyTorch versions of
-    the kernels.
+    ``quantize`` raise ``ValueError``, as in the JAX package.
+    ``self_ensemble``: average the 8 D4 flip/rotation variants (the EDSR
+    paper's '+' mode, 8 forwards), in float32 before the u8 rounding; a
+    static int8 predict then calibrates on all 8 variants of the image (of
+    a tile-sized centre crop when the image is tiled). ``device`` defaults
+    to the card; pass ``"cpu"`` for the plain PyTorch versions of the
+    kernels.
     """
-    if self_ensemble:
-        raise NotImplementedError(f"self_ensemble {_LATER}")
     device = resolve_device(device)
     # with net_scale the model builds at its trained scale and the
-    # predict serves the level of the requested one
+    # predict serves the level of the requested one; ensemble members
+    # stay float (the wrapper quantizes once)
     spec, channels, fn = _load(model_name, params_path,
                                os.path.getmtime(params_path),
                                net_scale or scale_factor, num_channels,
-                               dtype, fused, quantize, output_u8,
+                               dtype, fused, quantize,
+                               output_u8 and not self_ensemble,
                                calib_headroom, device,
                                scale_factor if net_scale else None)
+    base_fn = fn
+    if self_ensemble:
+        fn = make_self_ensemble_predict(fn, output_u8=output_u8)
     if img.ndim == 2:
         img = img[:, :, None]
     r = scale_factor
@@ -252,9 +260,21 @@ def upscale(
         net_in = (model_in if model_in.shape[-1] == 3
                   else np.repeat(model_in, 3, axis=2))
     x = torch.from_numpy(net_in.astype(np.float32)[None] / 255.0).to(device)
+    tiled = tile is not None and max(x.shape[1], x.shape[2]) > tile
+    if self_ensemble and hasattr(base_fn, "calibrate"):
+        # static int8: the first-call calibration would see the identity
+        # member only, and the others' ranges can exceed it. Calibrate on
+        # all 8 D4 variants up front (a no-op once the cached predict is
+        # calibrated), of a tile-sized centre crop when tiled
+        cal = x
+        if tiled:
+            ch, cw = min(tile, x.shape[1]), min(tile, x.shape[2])
+            top, left = (x.shape[1] - ch) // 2, (x.shape[2] - cw) // 2
+            cal = x[:, top:top + ch, left:left + cw]
+        base_fn.calibrate([transform(cal, f, k) for f, k in TRANSFORMS])
     halo = RECEPTIVE_FIELD.get(model_name.lower(), 48)
     with torch.inference_mode():
-        if tile is not None and max(x.shape[1], x.shape[2]) > tile:
+        if tiled:
             out = tiled_predict(fn, x, out_factor, tile=tile, halo=halo)
         else:
             out = fn(x)

@@ -129,7 +129,9 @@ def make_fused_tail_predict(model, support: int = 7):
     device = next(model.parameters()).device
     K, b = _composite(model, support)
     dtype = model.dtype
+    # contiguous OIHW: an exported program saves its constants densely
     weight = torch.from_numpy(K).permute(3, 2, 0, 1).to(device, dtype)
+    weight = weight.contiguous()
     bias = torch.from_numpy(b).to(device, dtype)
     pad = support // 2
 
@@ -209,7 +211,7 @@ def make_fused_tail_predict_quant(model, support: int = 7,
         s_K = np.maximum(np.abs(Kf).max(axis=(0, 1, 2)) / 127.0, _EPS)
         qK = torch.from_numpy(np.clip(np.round(Kf / s_K), -127, 127)
                               .astype(np.int8)).to(device)
-        packed = pack_weights(qK) if device.type == "cuda" else None
+        packed = pack_weights(qK)
         s_out = torch.from_numpy(np.asarray(s_K, np.float32)).to(device)
         inv_s_h = torch.from_numpy(
             np.asarray(1.0 / np.asarray(s_h, np.float32), np.float32)

@@ -336,9 +336,11 @@ class ResnetBlock(nn.Module):
     def packed(self):
         """The operands and f32 biases for :func:`fused_resblock`, in the
         block's dtype on the weights' device: (9·C, C) operands, or for a
-        bf16 block on a card the kernel's ``wgmma`` layout. Packed on first
-        use and cached; packed again when a weight changes, moves or the
-        dtype changes. None for a block the kernel does not compute."""
+        bf16 block the kernel's ``wgmma`` layout, on either device (the
+        CPU's plain version unpacks it), so a program exported on one
+        device runs on the other. Packed on first use and cached; packed
+        again when a weight changes, moves or the dtype changes. None for a
+        block the kernel does not compute."""
         if not self.fused:
             return None
         weights = (self.Conv_0.weight, self.Conv_0.bias,
@@ -348,7 +350,7 @@ class ResnetBlock(nn.Module):
             with torch.no_grad():
                 w1, b1, w2, b2 = pack_weights(*weights)
                 w1, w2 = w1.to(self.dtype), w2.to(self.dtype)
-                if w1.is_cuda and self.dtype == torch.bfloat16:
+                if self.dtype == torch.bfloat16:
                     w1, w2 = pack_wgmma_weights(w1), pack_wgmma_weights(w2)
                 self._packed = (w1, b1, w2, b2)
             self._packed_key = key

@@ -204,7 +204,7 @@ def phase_pack(kernel: torch.Tensor, s: int) -> torch.Tensor:
 class _Int8Site:
     """One conv's int8 operands, quantized once on the weights' device (the
     JAX package folds them into the executable at trace time): the int8
-    HWIO kernel (and on the card its kernel packing), its per-output-channel
+    HWIO kernel and its kernel packing, its per-output-channel
     scales, the float32 bias, and for a static site the activation scale
     and the dequantize multiplier. Built from a float HWIO ``kernel`` (k
     odd, SAME padding) and its ``bias``, or from a conv with :meth:`of`.
@@ -238,8 +238,9 @@ class _Int8Site:
                 if bias is not None:
                     bias = bias.detach().repeat_interleave(phases * phases)
             self.q_w = q_w.contiguous()
-            self.packed = (pack_weights(self.q_w) if dev.type == "cuda"
-                           else None)
+            # on either device, so a program traced on one runs on the
+            # other; the CPU's plain version ignores it
+            self.packed = pack_weights(self.q_w)
             if self.s_act is not None:
                 # s_x * s_w; a folded per-channel scale leaves s_x = 1
                 self.dequant = (self.s_w if self.s_act.dim()
@@ -380,6 +381,10 @@ def calibrate_scales(model: nn.Module, x: torch.Tensor,
                        else amax)
         return None  # the float conv runs
 
+    # a fresh row-major copy: the stride of a size-1 dimension (0 in
+    # numpy's ``x[None]``) can steer a float conv to another algorithm, and
+    # the scales must not depend on how the caller laid out the batch
+    x = x.clone(memory_format=torch.contiguous_format)
     with torch.inference_mode(), intercept_convs(record):
         model(x)
     if not captured:

@@ -101,9 +101,11 @@ def test_upscale_defaults_to_the_card(edsr_params):
 
 
 def test_upscale_refuses_what_a_later_slice_brings(edsr_params, tmp_path):
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        upscale(_img(3), "EDSR", edsr_params, self_ensemble=True,
-                device="cpu")
+    # the self-ensemble serves since the export slice
+    # (tests/test_torch_ensemble.py): 8 D4 members, averaged
+    ens = upscale(_img(3), "EDSR", edsr_params, dtype="float32",
+                  self_ensemble=True, device="cpu")
+    assert ens.shape == (56, 44, 3) and ens.dtype == np.uint8
     # 1-channel models serve since ESPCN (tests/test_torch_espcn.py) and
     # pre-upsample models (bicubic input: SRCNN, VDSR, DRCN) since slice 9
     # (tests/test_torch_preupsample_serve.py): SRCNN's net keeps its
@@ -167,10 +169,17 @@ def test_server_model_mode_roundtrip(edsr_params):
 
 
 def test_service_refuses_artifact_mode(edsr_params):
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        SRService(artifact="edsr.hloart")
+    # artifact mode serves since the export slice
+    # (tests/test_torch_serve_artifact.py); what it refuses: int8 flags
+    # on an artifact (int8 is baked in at export), both modes at once, and
+    # a model without params
+    with pytest.raises(ValueError, match="--quantize applies"):
+        SRService(artifact="edsr.pt2", quantize="static", device="cpu")
+    with pytest.raises(ValueError, match="either"):
+        SRService(artifact="edsr.pt2", model_name="EDSR",
+                  params=edsr_params, device="cpu")
     with pytest.raises(ValueError):
-        SRService(model_name="EDSR")
+        SRService(model_name="EDSR", device="cpu")
 
 
 def _port_sources():
@@ -194,7 +203,8 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, sr_torch.infer, sr_torch.serve; "
+    code = ("import sys, sr_torch.infer, sr_torch.serve, sr_torch.export, "
+            "sr_torch.eval.ensemble, sr_torch.kernels.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
