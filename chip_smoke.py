@@ -193,6 +193,26 @@ Phases; any failure raises and exits non-zero without the final line:
    ``upscale(self_ensemble=True)`` card vs CPU and tiled vs whole ≤ 1
    level; MP/s at b16 128² → 512² of each artifact against its eager route
    (eager, artifact, artifact, eager), reported.
+14. The CLI and the reference-style wrappers (EDSR ×4 at full width, bf16,
+   crop 64, b32, ``sr_torch.main.main`` in this process, each run's counts
+   zeroed just before and read just after, cuDNN deterministic as the CLI
+   sets it), after its inputs are made where a cache under ``build/``
+   lacks them (the procedural splits in 8 processes of a child without
+   torch, the synthetic VGG19): (a) train 2 epochs of 40 steps on the
+   procedural corpus, evaluate the 128 procedural test images with panels
+   and SR PNGs,
+   export the ``.pt2`` and the reference ``.pkl`` (2 shuffles a step, 2 +
+   16 a predict; the loss falls); (b) one epoch, then resumed to two: the
+   params equal (a)'s bit for bit; (c)
+   ``--eval_only``: (a)'s summary bit for bit; (d) ``--self_ensemble``: 8×
+   (c)'s launches; (e) the ``.pt2`` and the ``.pkl``'s model equal the
+   eager predict bit for bit; (f) ``sr_torch.compat.ESPCN`` on Y trains,
+   tests a PNG folder with YCbCr panels and loads its ``.pkl`` alone; (g)
+   the SRGAN CLI, a pretrain and an adversarial epoch; (h) full-width
+   ``Upsample2xBlock('ps')`` and an instance-norm ``ConvBlock`` card vs
+   CPU (1e-3); (i) each kernel at the arguments captured in a train step
+   and a predict, against its plain version and timed; (j) wall seconds,
+   steps/s, images/s, export seconds, reported.
 
 It prints the bench's JSON line, a ``{"kernels": [...]}`` JSON line, then
 the card line, then as its last line ``{"ok": true, "device": {...}}``.
@@ -4131,9 +4151,10 @@ print(json.dumps({"counts": counts, "model_modules": bad}))
 
 
 class _OpCapture:
-    """Inside ``with``, records the arguments of the first call of each
-    ``sr_torch`` operator at each distinct input shape and type (a
-    ``TorchDispatchMode``: it sees the calls an exported program makes)."""
+    """Inside ``with``, records the arguments (detached) of the first call
+    of each ``sr_torch`` operator at each distinct input shape and type (a
+    ``TorchDispatchMode``: it sees the calls an exported program makes, and
+    a train step's forward below autograd)."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -4147,8 +4168,11 @@ class _OpCapture:
                     x = args[0]
                     shapes = tuple(tuple(a.shape) for a in args[1:]
                                    if isinstance(a, torch.Tensor))
-                    seen.setdefault((name.split("::")[1], tuple(x.shape),
-                                     x.dtype, shapes), args)
+                    seen.setdefault(
+                        (name.split("::")[1], tuple(x.shape), x.dtype,
+                         shapes),
+                        tuple(a.detach() if isinstance(a, torch.Tensor)
+                              else a for a in args))
                 return func(*args, **(kwargs or {}))
 
         self.seen, self._mode = seen, Mode()
@@ -4161,11 +4185,13 @@ class _OpCapture:
         self._mode.__exit__(*exc)
 
 
-def _captured_row(card: str, key, args, launches: int, route: str) -> dict:
-    """One kernel at the arguments an artifact gave it: the operator's
-    CUDA implementation against its plain version (exact, or the
-    resblock's 2e-2), times of both, the library call and the bound.
+def _captured_row(card: str, key, args, launches: int, route: str,
+                  tag: str = "[13]", path: str | None = None) -> dict:
+    """One kernel at the arguments an artifact (or ``path``) gave it: the
+    operator's CUDA implementation against its plain version (exact, or
+    the resblock's 2e-2), times of both, the library call and the bound.
     Returns the kernels-line row."""
+    path = path or f"phase 13 {route} artifact"
     from sr_torch.kernels import ops
 
     name, shape, dtype, _ = key
@@ -4213,13 +4239,13 @@ def _captured_row(card: str, key, args, launches: int, route: str) -> dict:
     got, want = op(*args), plain()
     err = float((got.double() - want.double()).abs().max())
     check(got.dtype == want.dtype and err <= tol,
-          f"{name} {shape} in the {route} artifact differs from its plain "
+          f"{name} {shape} in the {path} differs from its plain "
           f"version: {err} (tol {tol})")
     del got, want
     t_k = kernel_ms(lambda: op(*args))
     t_p = kernel_ms(plain, n=5, reps=3)
     t_l = kernel_ms(library, n=10, reps=3)
-    print(f"[13] {name} {shape} {str(dtype)[6:]} {desc} ({route} artifact, "
+    print(f"{tag} {name} {shape} {str(dtype)[6:]} {desc} ({path}, "
           f"{launches} launches on the path): kernel {t_k:.4f} ms, plain "
           f"{t_p:.4f} ms, library {t_l:.4f} ms, bound {bound:.4f} ms ({by}); "
           f"max |kernel - plain| {err:.3g} (tol {tol}) | {card}")
@@ -4229,7 +4255,7 @@ def _captured_row(card: str, key, args, launches: int, route: str) -> dict:
                 bound_ms=bound, bound_by=by, library_ms=t_l,
                 shape=list(shape) + ([n, k] if name == "conv_int8_fused"
                                      else []),
-                dtype=str(dtype)[6:], path=f"phase 13 {route} artifact")
+                dtype=str(dtype)[6:], path=path)
 
 
 def _art_export_start(out_dir: Path, path: Path, calib_pngs) -> dict:
@@ -4676,6 +4702,501 @@ def phase_artifacts(card: str) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------------
+# phase 14: the CLI and the reference-style wrappers
+# ----------------------------------------------------------------------
+
+#: phase 14's inputs: the procedural train and test splits the CLI reads
+#: (640 images at 384², minutes of host work on one core) and the
+#: synthetic VGG19. Kept between runs, as the kernels' build cache is, and
+#: made only where missing (:func:`_cli_setup`)
+CLI_DATA = ROOT / "build" / "chip_smoke" / "cli_data"
+#: (a)'s training: EDSR ×4 at full width, bf16, crop 64, b32, two epochs
+#: of 40 steps in dispatches of 20 (bench.py's flagship)
+CLI_STEPS, CLI_K, CLI_EPOCHS = 40, 20, 2
+CLI_TEST_IMAGES = 128  # get_test_set('procedural'), 384², by direct forward
+CLI_WORKERS = 8  # processes generating the procedural splits
+
+
+#: run as ``python -c``: the procedural splits through the path
+#: ``get_training_set`` and ``get_test_set`` take, in ``argv[2]`` spawned
+#: workers. A process of its own because the workers import their
+#: parent's main module, and this script's imports torch in each of them
+_CLI_DATA_CHILD = r"""
+import sys
+from sr_torch.data.datasets import procedural_cache, procedural_split
+for split in ("test", "train"):
+    procedural_split(split, "rgb").materialize(
+        procedural_cache(sys.argv[1]), int(sys.argv[2]))
+"""
+
+
+def _cli_setup(card: str) -> tuple[float, list[str]]:
+    """Phase 14's inputs, before anything of the phase is timed and with
+    nothing else running, made only where ``CLI_DATA`` lacks them: the
+    procedural splits (:data:`_CLI_DATA_CHILD`, :data:`CLI_WORKERS`
+    workers), then their files held to the paths the getters read and
+    the first and last image of each to a fresh generation; the synthetic
+    VGG19 as phase 11 makes it (``scripts/make_synthetic_vgg.py``).
+    Returns the seconds and what was made."""
+    from sr_torch.data.datasets import procedural_cache, procedural_split
+
+    t0 = time.perf_counter()
+    cache = procedural_cache(str(CLI_DATA))
+    splits = {s: procedural_split(s, "rgb") for s in ("test", "train")}
+    made = [Path(ds.cache_path(cache)).name for ds in splits.values()
+            if not Path(ds.cache_path(cache)).is_file()]
+    if made:
+        subprocess.run([sys.executable, "-c", _CLI_DATA_CHILD, str(CLI_DATA),
+                        str(CLI_WORKERS)], cwd=ROOT, check=True,
+                       capture_output=True, timeout=900)
+    for split, ds in splits.items():
+        check(Path(ds.cache_path(cache)).is_file(),
+              f"[14] no cached procedural {split} split at "
+              f"{ds.cache_path(cache)}")
+        ds.materialize(cache)
+        fresh = procedural_split(split, "rgb")
+        for i in (0, len(ds) - 1):
+            check(np.array_equal(ds[i], fresh[i]),
+                  f"[14] procedural {split} image {i} differs from a fresh "
+                  "generation")
+    del splits, ds
+    vgg = CLI_DATA / "vgg19_synthetic.pth"
+    if not vgg.is_file():
+        tmp = vgg.with_suffix(".tmp")
+        subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                            "make_synthetic_vgg.py"),
+                        str(tmp)], check=True, capture_output=True,
+                       timeout=300)
+        tmp.replace(vgg)
+        made.append(vgg.name)
+    seconds = time.perf_counter() - t0
+    print(f"[14] setup: {seconds:.1f} s, made {made or 'nothing (cached)'} "
+          f"with {CLI_WORKERS} workers | {card}")
+    return seconds, made
+
+
+class _Timed:
+    """Inside ``with``, the wall seconds of every call of each
+    ``(owner, attribute)`` (a module's function or a class's method), the
+    card synchronised at its end."""
+
+    def __init__(self, *targets):
+        self.targets, self.seconds = targets, {}
+
+    def __enter__(self):
+        self._orig = [(o, n, getattr(o, n)) for o, n in self.targets]
+        for owner, name, fn in self._orig:
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    self.seconds.setdefault(_name, []).append(
+                        time.perf_counter() - t0)
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+
+
+def _cli_argv(save_dir: Path, *extra, epochs: int = CLI_EPOCHS,
+              test: str = "procedural") -> list[str]:
+    return ["--model_name", "EDSR", "--scale_factor", "4", "--crop_size",
+            "64", "--batch_size", "32", "--dtype", "bfloat16",
+            "--train_dataset", "procedural", "--test_dataset", test,
+            "--num_epochs", str(epochs), "--save_epochs", "1",
+            "--steps_per_epoch", str(CLI_STEPS), "--steps_per_dispatch",
+            str(CLI_K), "--data_dir", str(CLI_DATA), "--save_dir",
+            str(save_dir), *extra]
+
+
+def _cli_records(run_dir: Path) -> tuple[list[dict], list[dict]]:
+    """(train records, eval records) of a run's metrics.jsonl."""
+    with open(run_dir / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    return ([r for r in recs if "loss" in r],
+            [r for r in recs if r.get("event") == "eval"])
+
+
+def _cli_run(argv: list[str], what: str) -> tuple[dict, dict, float]:
+    """``sr_torch.main.main(argv)`` in this process, the kernels' counts
+    zeroed just before and read just after, and the wall seconds of the
+    run, of its fit, its eval and its export. Returns (launches, seconds,
+    wall)."""
+    from sr_torch import main as cli
+    from sr_torch.kernels import ops
+    from sr_torch.train import gan, trainer
+
+    counters = {"depth_to_space": ops.depth_to_space,
+                "fused_resblock": ops.fused_resblock}
+    with _Timed((trainer.Trainer, "fit"), (gan.GANTrainer, "fit"),
+                (cli, "run_eval"), (cli, "export_artifact")) as timed:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    check(rc == 0, f"[14] {what}: main returned {rc}")
+    seconds = {k: sum(v) for k, v in timed.seconds.items()}
+    print(f"[14] {what}: {wall:.1f} s, launches {launches}, "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    return launches, seconds, wall
+
+
+def _npz_equal(a: Path, b: Path) -> bool:
+    with np.load(a) as za, np.load(b) as zb:
+        return set(za.files) == set(zb.files) and all(
+            np.array_equal(za[k], zb[k]) for k in za.files)
+
+
+def _cli_train(card: str, runs: Path) -> dict:
+    """(a) The flagship through the CLI: train with checkpoints, sample
+    renders, loss.png, eval on the procedural test set with panels and SR
+    PNGs, export the .pt2 and the reference .pkl. 2 shuffles a step, 2
+    shuffles and 16 resblocks a predict (2 sample renders, the test set
+    and the export's warm-up call). Returns the run's numbers."""
+    run = runs / "a" / "EDSR_x4"
+    launches, sec, wall = _cli_run(
+        _cli_argv(runs / "a", "--export", "--export_torch"),
+        "(a) train, eval, export")
+    steps = CLI_EPOCHS * CLI_STEPS
+    predicts = CLI_EPOCHS + CLI_TEST_IMAGES + 1
+    want = {"depth_to_space": 2 * steps + 2 * predicts,
+            "fused_resblock": 16 * predicts}
+    check(launches == want, f"(a) launches {launches}, want {want} (2 a "
+          f"step, 2 + 16 a predict, {steps} steps, {predicts} predicts)")
+    train, (ev,) = _cli_records(run)
+    losses = [r["loss"] for r in train]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(a) the loss did not fall: {losses}")
+    for rel in ("EDSR_params.npz", "EDSR_x4.pt2", "EDSR_param.pkl",
+                "loss.png", "samples/epoch_0001.png",
+                "samples/epoch_0002.png"):
+        check((run / rel).is_file(), f"(a) wrote no {rel}")
+    for sub in ("panels", "images"):
+        n = len(list((run / sub).glob("*.png")))
+        check(n == CLI_TEST_IMAGES, f"(a) {n} {sub}, want {CLI_TEST_IMAGES}")
+    check(ev["num_images"] == CLI_TEST_IMAGES and np.isfinite(ev["psnr_sr"])
+          and np.isfinite(ev["ssim_sr"]), f"(a) eval record {ev}")
+    out = {"launches": launches, "wall": wall, "train_s": sec["fit"],
+           "steps_per_s": steps / sec["fit"], "eval_s": sec["run_eval"],
+           "images_per_s": CLI_TEST_IMAGES / sec["run_eval"],
+           "export_s": sec["export_artifact"], "eval": ev,
+           "loss": (losses[0], losses[-1])}
+    print(f"[14] (a) EDSR x4 bf16 crop 64 b32: {steps} steps in "
+          f"{sec['fit']:.2f} s ({out['steps_per_s']:.1f} steps/s with 2 "
+          f"sample renders), loss {losses[0]:.5f} -> {losses[-1]:.5f}; eval "
+          f"{CLI_TEST_IMAGES} procedural 384^2 with panels and SR PNGs "
+          f"{sec['run_eval']:.2f} s ({out['images_per_s']:.1f} images/s), "
+          f"SR {ev['psnr_sr']:.4f} dB / SSIM {ev['ssim_sr']:.4f} vs bicubic "
+          f"{ev['psnr_bicubic']:.4f}; export {sec['export_artifact']:.2f} s "
+          f"| {card}")
+    return out
+
+
+def _cli_resume(card: str, runs: Path, a_run: Path) -> float:
+    """(b) One epoch, then the same command to two: the resumed run ends
+    with (a)'s params bit for bit. Returns the wall seconds."""
+    walls = []
+    for epochs in (1, CLI_EPOCHS):
+        _, _, wall = _cli_run(
+            _cli_argv(runs / "b", epochs=epochs, test="synthetic"),
+            f"(b) resume, {epochs} epoch(s)")
+        walls.append(wall)
+    run = runs / "b" / "EDSR_x4"
+    check(_npz_equal(run / "EDSR_params.npz", a_run / "EDSR_params.npz"),
+          "(b) the resumed run's params differ from (a)'s")
+    steps = [r["step"] for r in _cli_records(run)[0]]
+    check(steps[-1] == CLI_EPOCHS * CLI_STEPS and steps == sorted(steps),
+          f"(b) steps {steps}")
+    print(f"[14] (b) 1 epoch, then resumed to {CLI_EPOCHS}: params == (a)'s "
+          f"bit for bit ({' + '.join(f'{w:.1f}' for w in walls)} s) | {card}")
+    return sum(walls)
+
+
+def _cli_eval_only(card: str, runs: Path, a: dict) -> tuple[dict, dict]:
+    """(c) --eval_only on (a)'s run: (a)'s summary bit for bit, 2 + 16
+    launches a predict. (d) with --self_ensemble (and --fast_eval): 8×
+    (c)'s launches. Returns (c)'s and (d)'s numbers."""
+    run = runs / "a" / "EDSR_x4"
+    launches, sec, wall = _cli_run(_cli_argv(runs / "a", "--eval_only"),
+                                   "(c) --eval_only")
+    want = {"depth_to_space": 2 * CLI_TEST_IMAGES,
+            "fused_resblock": 16 * CLI_TEST_IMAGES}
+    check(launches == want, f"(c) launches {launches}, want {want}")
+    ev = _cli_records(run)[1][-1]
+    strip = lambda r: {k: v for k, v in r.items() if k != "ts"}  # noqa: E731
+    check(strip(ev) == strip(a["eval"]),
+          f"(c) summary {ev} differs from (a)'s {a['eval']}")
+    c = {"launches": launches, "wall": wall,
+         "images_per_s": CLI_TEST_IMAGES / sec["run_eval"]}
+    print(f"[14] (c) --eval_only: summary == (a)'s bit for bit; eval "
+          f"{sec['run_eval']:.2f} s ({c['images_per_s']:.1f} images/s) "
+          f"| {card}")
+    launches, sec, wall = _cli_run(
+        _cli_argv(runs / "a", "--eval_only", "--self_ensemble",
+                  "--fast_eval"), "(d) --eval_only --self_ensemble")
+    check(launches == {k: 8 * v for k, v in c["launches"].items()},
+          f"(d) launches {launches}, want 8x (c)'s {c['launches']}")
+    ens = _cli_records(run)[1][-1]
+    check(ens.get("self_ensemble") is True and np.isfinite(ens["psnr_sr"]),
+          f"(d) eval record {ens}")
+    d = {"launches": launches, "wall": wall,
+         "images_per_s": CLI_TEST_IMAGES / sec["run_eval"], "eval": ens}
+    print(f"[14] (d) --self_ensemble --fast_eval: 8x (c)'s launches; SR "
+          f"{ens['psnr_sr']:.4f} dB (device metrics) against (c)'s "
+          f"{ev['psnr_sr']:.4f} (host); eval {sec['run_eval']:.2f} s "
+          f"({d['images_per_s']:.1f} images/s) | {card}")
+    return c, d
+
+
+def _cli_artifacts(card: str, a_run: Path) -> None:
+    """(e) (a)'s .pt2 (load_artifact) equals the eager predict of (a)'s
+    params bit for bit at b1 and b4; its .pkl loaded into a fresh port
+    EDSR gives the same tensors, and that model's predict is the same."""
+    from sr_torch.export import load_artifact
+    from sr_torch.models.registry import get_spec
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.checkpoint import load_params
+    from sr_torch.utils.config import SRConfig
+    from sr_torch.utils.interop import from_jax_params, to_jax_params
+    from sr_torch.utils.refckpt import load_reference_checkpoint
+
+    cfg = SRConfig(model_name="EDSR", num_channels=3, dtype="bfloat16")
+    params, _ = load_params(str(a_run / "EDSR_params.npz"))
+    eager = from_jax_params(get_spec("EDSR").make_model(cfg), params).cuda()
+    fresh = load_reference_checkpoint("EDSR", get_spec("EDSR").make_model(
+        cfg), str(a_run / "EDSR_param.pkl"))
+    check(_trees_equal(to_jax_params(fresh), params),
+          "(e) the .pkl does not load back (a)'s params")
+    fresh = fresh.cuda()
+    art = load_artifact(str(a_run / "EDSR_x4.pt2"), device="cuda")
+    predict = Trainer(cfg).make_predict_fn()
+    size = 64 // 4
+    for b in (1, 4):
+        x = torch.rand((b, size, size, 3), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(b))
+        want = predict(eager, x)
+        check(torch.equal(art(x), want),
+              f"(e) the .pt2 differs from eager at b{b}")
+        check(torch.equal(predict(fresh, x), want),
+              f"(e) the .pkl's model differs from eager at b{b}")
+    print(f"[14] (e) EDSR_x4.pt2 == eager predict at b1 and b4 "
+          f"({size}^2 LR); EDSR_param.pkl -> fresh EDSR == (a)'s params, "
+          f"its predict == eager | {card}")
+
+
+def _cli_compat(card: str, runs: Path) -> float:
+    """(f) ``sr_torch.compat.ESPCN`` on Y: train a few steps, test on a
+    PNG folder (static route, YCbCr panels), write the reference .pkl, and
+    a fresh wrapper loads it with no .npz beside it. Returns seconds."""
+    import types
+
+    from PIL import Image
+
+    from sr_torch import compat
+    from sr_torch.data.datasets import SyntheticDataset
+    from sr_torch.kernels import ops
+    from sr_torch.utils.interop import to_jax_params
+    from sr_torch.utils.refckpt import export_reference_checkpoint
+
+    t0 = time.perf_counter()
+    folder = CLI_DATA / "test" / "cli_y"
+    folder.mkdir(parents=True, exist_ok=True)
+    imgs = SyntheticDataset(3, (100, 84), 3, seed=21)
+    for i in range(len(imgs)):
+        Image.fromarray(imgs[i]).save(folder / f"y{i}.png")
+    args = types.SimpleNamespace(
+        train_dataset="synthetic", test_dataset="cli_y",
+        data_dir=str(CLI_DATA), save_dir=str(runs / "f"), num_epochs=1,
+        steps_per_epoch=20, batch_size=32, crop_size=64, scale_factor=4,
+        dtype="bfloat16", device="cuda", num_channels=None, lr=None,
+        save_epochs=None, test_batch_size=None, num_threads=None, seed=None)
+    ops.depth_to_space.launches = 0
+    w = compat.ESPCN(args)
+    losses = w.train()
+    trained = ops.depth_to_space.launches
+    res = w.test()
+    check(trained == 20 and ops.depth_to_space.launches > trained
+          and all(np.isfinite(losses)) and np.isfinite(res.avg_psnr_sr)
+          and len(res.images) == 3,
+          f"(f) ESPCN: {trained} / {ops.depth_to_space.launches} shuffles, "
+          f"losses {losses}, {len(res.images)} images")
+    run = runs / "f" / "ESPCN_x4"
+    check(len(list((run / "panels").glob("*.png"))) == 3, "(f) no panels")
+    export_reference_checkpoint("ESPCN", w.state.model,
+                                str(run / "ESPCN_param.pkl"))
+    (run / "ESPCN_params.npz").unlink()
+    w2 = compat.ESPCN(args)
+    check(w2.load_model(), "(f) load_model found no .pkl")
+    a, b = to_jax_params(w.state.model), to_jax_params(w2.state.model)
+    check(_trees_equal(a, b),
+        "(f) the .pkl did not load the trained params")
+    x = torch.rand((2, 24, 20, 1), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(5))
+    fn = w.trainer.make_predict_fn()
+    check(torch.equal(fn(w.state.model, x), fn(w2.state.model, x)),
+          "(f) the .pkl's model predicts otherwise")
+    seconds = time.perf_counter() - t0
+    print(f"[14] (f) compat.ESPCN on Y: train 20 steps (20 shuffles), "
+          f"test 3 folder images, SR {res.avg_psnr_sr:.4f} dB with YCbCr "
+          f"panels; load_model from ESPCN_param.pkl alone == trained; "
+          f"{seconds:.1f} s | {card}")
+    return seconds
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    if set(a) != set(b):
+        return False
+    return all(_trees_equal(a[k], b[k]) if isinstance(a[k], dict)
+               else np.array_equal(a[k], b[k]) for k in a)
+
+
+def _cli_srgan(card: str, runs: Path, vgg: Path) -> float:
+    """(g) ``python -m sr_torch.main --model_name SRGAN``: one pretrain and
+    one adversarial epoch of 4 steps (dispatches of 2), VGG19 from the
+    synthetic weights. 2 shuffles a pretrain step, 4 an adversarial one, 2
+    a predict (2 sample renders, 5 test images); no resblock. Returns the
+    wall seconds."""
+    launches, sec, wall = _cli_run([
+        "--model_name", "SRGAN", "--num_epochs", "2", "--pretrain_epochs",
+        "1", "--steps_per_epoch", "4", "--steps_per_dispatch", "2",
+        "--crop_size", "64", "--batch_size", "16", "--save_epochs", "1",
+        "--train_dataset", "synthetic", "--test_dataset", "synthetic",
+        "--vgg_weights_path", str(vgg), "--data_dir", str(CLI_DATA),
+        "--save_dir", str(runs / "g")], "(g) SRGAN")
+    want = {"depth_to_space": 2 * 4 + 4 * 4 + 2 * (2 + 5),
+            "fused_resblock": 0}
+    check(launches == want, f"(g) launches {launches}, want {want}")
+    run = runs / "g" / "SRGAN_x4"
+    with open(run / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    adv = [r for r in recs if r.get("phase") == "adversarial"]
+    check(adv and all(np.isfinite(r[k]) for r in adv
+                      for k in ("d_loss", "g_loss", "g_vgg_loss")),
+          f"(g) adversarial records {adv}")
+    check((run / "ckpt_d" / "run_meta.json").is_file()
+          and np.isfinite(recs[-1]["psnr_sr"]), "(g) no D checkpoint / eval")
+    print(f"[14] (g) SRGAN: pretrain + adversarial epoch, d_loss "
+          f"{adv[-1]['d_loss']:.4f}, g_loss {adv[-1]['g_loss']:.4f}, eval SR "
+          f"{recs[-1]['psnr_sr']:.4f} dB; fit {sec['fit']:.2f} s | {card}")
+    return wall
+
+
+def _cli_blocks(card: str) -> None:
+    """(h) Full-width ``Upsample2xBlock('ps')`` and an instance-norm
+    ``ConvBlock`` on the card against the CPU, f32, TF32 off, 1e-3."""
+    from sr_torch.kernels import ops
+    from sr_torch.nn.blocks import ConvBlock, Upsample2xBlock
+    from sr_torch.utils.precision import no_tf32
+
+    gen = torch.Generator().manual_seed(14)
+    x = torch.rand((4, 64, 64, 64), generator=gen)
+    errs = {}
+    for name, blk in (
+            ("Upsample2xBlock('ps')", Upsample2xBlock(64, 64, "ps",
+                                                      generator=gen)),
+            ("ConvBlock(norm='instance')", ConvBlock(
+                64, 64, 3, norm="instance", generator=gen))):
+        with torch.no_grad(), no_tf32():
+            want = blk(x)
+            before = ops.depth_to_space.launches
+            got = blk.cuda()(x.cuda().contiguous(
+                memory_format=torch.channels_last)).cpu()
+            shuffles = ops.depth_to_space.launches - before
+        errs[name] = float((got - want).abs().max())
+        check(got.shape == want.shape and errs[name] <= 1e-3
+              and shuffles == (1 if "ps" in name else 0),
+              f"(h) {name}: card vs CPU {errs[name]}, {shuffles} shuffles")
+    print(f"[14] (h) card vs CPU (4,64,64,64) f32: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol 1e-3) | {card}")
+
+
+def _cli_kernel_rows(card: str, a_run: Path, launches: dict) -> list[dict]:
+    """(i) The shuffle and the resblock at the arguments (a)'s path gives
+    them, captured in one train step (crop 64, b32) and one predict of a
+    procedural test image (96² LR), against their plain versions and
+    timed as phase 13 times them. Returns the kernels-line rows."""
+    from sr_torch.data.datasets import get_training_set
+    from sr_torch.data.pipeline import build_patch_pipeline
+    from sr_torch.models.registry import get_spec
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.checkpoint import load_params
+    from sr_torch.utils.config import SRConfig
+    from sr_torch.utils.interop import from_jax_params
+
+    cfg = SRConfig(model_name="EDSR", num_channels=3, dtype="bfloat16",
+                   crop_size=64, batch_size=32)
+    tr = Trainer(cfg)
+    state = tr.init_state(cfg.seed)
+    from_jax_params(state.model, load_params(str(a_run /
+                                                 "EDSR_params.npz"))[0])
+    train = get_training_set(str(CLI_DATA), "procedural", "rgb")
+    pipe = build_patch_pipeline(cfg, get_spec("EDSR"), [train[i] for i in
+                                                        range(4)])
+    batch = pipe(torch.Generator(device="cuda").manual_seed(14))
+    x = torch.rand((1, 96, 96, 3), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(15))
+    predict = tr.make_predict_fn()
+    caps = {}
+    for route, run in (("train step", lambda: tr.train_step(state, batch)),
+                       ("eval predict", lambda: predict(state.model, x))):
+        with _OpCapture() as cap:
+            run()
+        caps[route] = cap.seen
+    rows = []
+    for route, seen in caps.items():
+        for key, args in seen.items():
+            rows.append(_captured_row(
+                card, key, args, launches[key[0]], route, tag="[14]",
+                path=f"phase 14 CLI {route}"))
+    names = sorted({(r["name"], tuple(r["shape"])) for r in rows})
+    check(len(names) == 5, f"(i) captured {names}: want 2 train shuffles, "
+          "2 predict shuffles and the resblock")
+    return rows
+
+
+def phase_cli(card: str) -> list[dict]:
+    """Phase 14: EDSR ×4 at full width through ``sr_torch.main.main`` in
+    this process (so the kernels' counts can be read), in the CLI's own
+    cuDNN mode (deterministic algorithms, so a resumed run can equal an
+    uninterrupted one bit for bit): (a) train → eval → export, (b) resume,
+    (c) --eval_only, (d) --self_ensemble, (e) the .pt2 and .pkl, (f) the
+    ESPCN compat wrapper on Y, (g) the SRGAN CLI, (h) the rest of the
+    block menu on the card, (i) the kernels at this phase's shapes, (j)
+    the timings. Its inputs are made first (:func:`_cli_setup`). Returns
+    the kernels-line rows."""
+    setup_s, _ = _cli_setup(card)
+    t0 = time.perf_counter()
+    runs = ROOT / "build" / "chip_smoke" / "cli_runs"
+    shutil.rmtree(runs, ignore_errors=True)
+    a = _cli_train(card, runs)
+    b_wall = _cli_resume(card, runs, runs / "a" / "EDSR_x4")
+    c, d = _cli_eval_only(card, runs, a)
+    _cli_artifacts(card, runs / "a" / "EDSR_x4")
+    f_s = _cli_compat(card, runs)
+    g_wall = _cli_srgan(card, runs, CLI_DATA / "vgg19_synthetic.pth")
+    _cli_blocks(card)
+    torch.cuda.empty_cache()
+    rows = _cli_kernel_rows(card, runs / "a" / "EDSR_x4", a["launches"])
+    print(f"[14] (j) wall s: (a) {a['wall']:.1f}, (b) {b_wall:.1f}, (c) "
+          f"{c['wall']:.1f}, (d) {d['wall']:.1f}, (f) {f_s:.1f}, (g) "
+          f"{g_wall:.1f}; (a) {a['steps_per_s']:.1f} steps/s, eval "
+          f"{a['images_per_s']:.1f} / (c) {c['images_per_s']:.1f} / (d) "
+          f"{d['images_per_s']:.1f} images/s, export {a['export_s']:.2f} s "
+          f"(cuDNN deterministic, as the CLI runs it) | {card}")
+    print(f"[14] phase seconds {time.perf_counter() - t0:.1f} after "
+          f"{setup_s:.1f} s of setup")
+    return rows
+
+
 BENCH_KEYS = ("value", "vs_baseline", "bf16_exact_mps", "bf16_fused_mps",
               "bf16_fused_vs_baseline", "bf16_best_mps")
 
@@ -4783,6 +5304,8 @@ def main() -> int:
     entries += phase_fsrcnn_lapsrn(card)
     torch.cuda.empty_cache()
     entries += phase_artifacts(card)
+    torch.cuda.empty_cache()
+    entries += phase_cli(card)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -98,6 +98,25 @@ class SyntheticDataset:
         return [f"synthetic_{i:03d}" for i in range(self.num_images)]
 
 
+def procedural_split(split: str, color_space: str = "ycbcr"):
+    """The procedural corpus's ``split``, not yet generated: 512 ('train')
+    or 128 ('test') images at 384², seed 0 (the splits draw disjoint PRNG
+    streams). ``get_training_set`` and ``get_test_set`` return it for
+    'procedural', materialized through :func:`procedural_cache`; calling
+    ``materialize`` on it there first (with ``workers``) fills their
+    cache."""
+    from sr_torch.data.procedural import ProceduralDataset
+
+    return ProceduralDataset(
+        num_images={"train": 512, "test": 128}[split], size=(384, 384),
+        seed=0, split=split, color_space=color_space)
+
+
+def procedural_cache(data_dir: str) -> str:
+    """Where the procedural splits of ``data_dir`` are cached."""
+    return os.path.join(data_dir, "procedural_cache")
+
+
 def get_training_set(data_dir: str, datasets: list[str] | str,
                      color_space: str = "ycbcr"):
     """Training dataset by name(s). (reference: data.py:get_training_set)
@@ -122,12 +141,8 @@ def get_training_set(data_dir: str, datasets: list[str] | str,
                     f"concatenated with {[d for d in datasets if d != name]}"
                 )
             if lname == "procedural":
-                from sr_torch.data.procedural import ProceduralDataset
-
-                return ProceduralDataset(
-                    num_images=512, size=(384, 384), seed=0, split="train",
-                    color_space=color_space,
-                ).materialize(os.path.join(data_dir, "procedural_cache"))
+                return procedural_split("train", color_space).materialize(
+                    procedural_cache(data_dir))
             return SyntheticDataset(num_images=32, size=(160, 160), seed=0)
         if lname == "bsds300":
             paths += list_images(os.path.join(_bsds300(data_dir), "train"))
@@ -151,13 +166,8 @@ def get_test_set(data_dir: str, dataset: str, color_space: str = "ycbcr"):
     if lname == "synthetic":
         return SyntheticDataset(num_images=5, size=(128, 128), seed=7)
     if lname == "procedural":
-        from sr_torch.data.procedural import ProceduralDataset
-
-        # disjoint PRNG stream from the train split
-        return ProceduralDataset(
-            num_images=128, size=(384, 384), seed=0, split="test",
-            color_space=color_space,
-        ).materialize(os.path.join(data_dir, "procedural_cache"))
+        return procedural_split("test", color_space).materialize(
+            procedural_cache(data_dir))
     if lname == "bsds300":
         return FolderDataset(
             list_images(os.path.join(_bsds300(data_dir), "test")),

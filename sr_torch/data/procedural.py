@@ -26,7 +26,7 @@ network is available.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -281,7 +281,18 @@ class ProceduralDataset:
         return [f"procedural_{self.split}_{i:03d}"
                 for i in range(self.num_images)]
 
-    def materialize(self, cache_dir: str | None) -> "ProceduralDataset":
+    def cache_path(self, cache_dir: str) -> str:
+        """The .npz under ``cache_dir`` that :meth:`materialize` reads or
+        writes: the JAX package's file name, a function of the key."""
+        import os
+
+        h, w = self.size
+        return os.path.join(
+            cache_dir, f"procedural_v{GEN_VERSION}_{self.split}_s{self.seed}_"
+            f"{h}x{w}_{self.color_space}_n{self.num_images}.npz")
+
+    def materialize(self, cache_dir: str | None,
+                    workers: int = 1) -> "ProceduralDataset":
         """Generate (or load) the whole corpus up front.
 
         Generation costs ~0.5 s/image; a 512-image training corpus is
@@ -289,20 +300,31 @@ class ProceduralDataset:
         ``cache_dir`` the stacked uint8 corpus persists as one .npz
         (content is a pure function of the key, so the cache can never
         go stale). Unwritable/absent dirs degrade to in-memory
-        generation. Returns self for chaining.
+        generation. ``workers`` > 1 generates in that many spawned
+        processes (the same images: each depends only on its index); they
+        import the caller's main module, so call it from one that does not
+        import torch. Returns self for chaining.
         """
         import os
 
-        h, w = self.size
         path = None
         if cache_dir:
-            key = (f"procedural_v{GEN_VERSION}_{self.split}_s{self.seed}_"
-                   f"{h}x{w}_{self.color_space}_n{self.num_images}.npz")
-            path = os.path.join(cache_dir, key)
+            path = self.cache_path(cache_dir)
             if os.path.exists(path):
                 stack = np.load(path)["images"]
                 self._cache = {i: stack[i] for i in range(len(stack))}
                 return self
+        if workers > 1:
+            import multiprocessing as mp
+            from concurrent.futures import ProcessPoolExecutor
+
+            todo = [i for i in range(self.num_images) if i not in self._cache]
+            # the workers get a copy with an empty cache: this one fills
+            # while later chunks are still being sent
+            with ProcessPoolExecutor(
+                    workers, mp_context=mp.get_context("spawn")) as ex:
+                self._cache.update(zip(todo, ex.map(
+                    replace(self).__getitem__, todo, chunksize=8)))
         stack = np.stack([self[i] for i in range(self.num_images)])
         if path is not None:
             try:

@@ -73,3 +73,7 @@ def get_spec(name: str) -> ModelSpec:
         raise KeyError(f"unknown model {name!r}; the port serves "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[key]
+
+
+def available_models() -> list[str]:
+    return sorted(_REGISTRY)

@@ -1,20 +1,21 @@
-"""NN building blocks: ConvBlock, DeconvBlock, ResnetBlock, PSBlock, PReLU,
-BatchNorm.
+"""NN building blocks: ConvBlock, DeconvBlock, ResnetBlock, PSBlock,
+Upsample2xBlock, PReLU, BatchNorm, InstanceNorm.
 
 Port of ``sr/nn/blocks.py``: the activation menu (``relu``, ``prelu``,
-``lrelu`` with slope 0.2, ``tanh``, ``sigmoid``, ``None``), ``norm="batch"``
-with flax's BatchNorm semantics, the kernel initializers of
-``sr_torch/nn/init.py`` (``kernel_init``) and convs without bias
-(``use_bias=False``). ``norm="instance"`` belongs to no zoo model yet and
-raises until its first user lands.
+``lrelu`` with slope 0.2, ``tanh``, ``sigmoid``, ``None``), the norm menu
+(``"batch"`` with flax's BatchNorm semantics, ``"instance"`` as flax's
+``GroupNorm`` with one channel a group, ``None``), the kernel initializers
+of ``sr_torch/nn/init.py`` (``kernel_init``) and convs without bias
+(``use_bias=False``). No zoo model uses instance norm or
+``Upsample2xBlock``; they complete the JAX package's block menu.
 
 Blocks take and return NCHW-logical tensors in ``torch.channels_last``
 memory, which lays them out as NHWC, so ``x.permute(0, 2, 3, 1)`` hands the
 kernels an NHWC tensor without a copy. Parameters are float32; ``dtype`` is
 the compute dtype, as in the flax blocks. Each block names its submodules
 like flax does (``Conv_0``/``Conv_1``, ``_NormAct_0/BatchNorm_0``,
-``_NormAct_0/PReLU_0``, ``BatchNorm_0``), so a parameter's path reads the
-same in both packages.
+``_NormAct_0/PReLU_0``, ``BatchNorm_0``, ``GroupNorm_0``), so a
+parameter's path reads the same in both packages.
 
 * :class:`BatchNorm` is ``flax.linen.BatchNorm(momentum=0.9)``, which
   ``torch.nn.BatchNorm2d`` is not: statistics in float32 whatever the
@@ -25,6 +26,11 @@ same in both packages.
   updates the running ones, unless :func:`frozen_batch_stats` is active;
   eval mode uses the running ones. Parameters ``scale``/``bias`` and
   buffers ``mean``/``var`` carry flax's names.
+* :class:`InstanceNorm` is ``flax.linen.GroupNorm(num_groups=None,
+  group_size=1)``: per sample and channel, the mean and E[x²] − E[x]²
+  (clipped at 0) over H and W in float32, eps 1e-6 (flax's default), the
+  same normalize as :class:`BatchNorm`, the output in the block's dtype;
+  parameters ``scale``/``bias``, no running statistics.
 * :class:`PReLU` has one shared slope (flax param ``slope``, 0.25 at
   init), applied as ``where(x >= 0, x, x·a)`` in x's dtype.
 * ``ResnetBlock`` with ``act='relu'`` and no norm (EDSR's) calls
@@ -42,6 +48,10 @@ same in both packages.
   shuffle (the conv, then the activation where it commutes with the
   shuffle), for the pre-shuffle training forwards and the folded serving
   tails.
+* :class:`Upsample2xBlock` is ×2 by ``'deconv'`` (a 4×4 stride-2
+  ``DeconvBlock``), ``'ps'`` (a ``PSBlock``: the shuffle kernel) or
+  ``'rnc'`` (nearest ×2, ``jax.image.resize``'s pixel repeat, then a 3×3
+  ``ConvBlock``).
 * ``DeconvBlock`` is a transposed conv with exact ×stride output (FSRCNN's
   9×9 stride 4, LapSRN's 4×4 stride 2): torch's ``ConvTranspose2d`` with
   ``p = ceil((k-s)/2)`` and ``output_padding = 2p-(k-s)``, the geometry
@@ -74,7 +84,6 @@ from sr_torch.kernels.fused_resblock import (
 from sr_torch.nn import intercept
 from sr_torch.nn.init import get_kernel_init
 
-_LATER = "lands in a later port slice"
 _ACTS = (None, "none", "relu", "prelu", "lrelu", "tanh", "sigmoid")
 
 _STATS_FROZEN: contextvars.ContextVar[bool] = contextvars.ContextVar(
@@ -84,11 +93,9 @@ _STATS_FROZEN: contextvars.ContextVar[bool] = contextvars.ContextVar(
 def _check_menu(act, norm) -> None:
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}; the menu is {_ACTS}")
-    if norm == "instance":
-        raise NotImplementedError(
-            f"norm 'instance' {_LATER}, with its first zoo model")
-    if norm not in (None, "batch"):
-        raise ValueError(f"unknown norm {norm!r} (None | 'batch')")
+    if norm not in (None, "batch", "instance"):
+        raise ValueError(f"unknown norm {norm!r} (None | 'batch' | "
+                         "'instance')")
 
 
 @contextlib.contextmanager
@@ -151,6 +158,48 @@ class BatchNorm(nn.Module):
         return (y + self.bias.view(1, -1, 1, 1)).to(self.dtype)
 
 
+class InstanceNorm(nn.Module):
+    """``flax.linen.GroupNorm(num_groups=None, group_size=1)`` over an
+    NCHW-logical tensor; see the module docstring."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # flax's _compute_stats over the spatial axes, float32
+        x32 = x.to(torch.float32)
+        mean = x32.mean((2, 3), keepdim=True)
+        var = torch.clamp_min(x32.square().mean((2, 3), keepdim=True)
+                              - mean.square(), 0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.view(1, -1, 1, 1)
+        y = (x - mean) * mul
+        return (y + self.bias.view(1, -1, 1, 1)).to(self.dtype)
+
+
+#: a norm's module name, flax's
+_NORM_NAMES = {"batch": "BatchNorm_0", "instance": "GroupNorm_0"}
+
+
+def _add_norm(block: nn.Module, norm: str | None, features: int,
+              dtype: torch.dtype) -> None:
+    """Register ``norm``'s module on ``block`` under flax's name."""
+    block.norm = norm
+    if norm is not None:
+        cls = BatchNorm if norm == "batch" else InstanceNorm
+        block.add_module(_NORM_NAMES[norm], cls(features, dtype=dtype))
+
+
+def _apply_norm(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if block.norm is None:
+        return x
+    return getattr(block, _NORM_NAMES[block.norm])(x)
+
+
 def _activate(act: str | None, x: torch.Tensor) -> torch.Tensor:
     if act == "relu":
         return torch.relu(x)
@@ -171,15 +220,13 @@ class _NormAct(nn.Module):
                  dtype: torch.dtype):
         super().__init__()
         _check_menu(act, norm)
-        self.norm, self.act, self.dtype = norm, act, dtype
-        if norm == "batch":
-            self.BatchNorm_0 = BatchNorm(features, dtype=dtype)
+        self.act, self.dtype = act, dtype
+        _add_norm(self, norm, features, dtype)
         if act == "prelu":
             self.PReLU_0 = PReLU()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.norm == "batch":
-            x = self.BatchNorm_0(x)
+        x = _apply_norm(self, x)
         if self.act == "prelu":
             return self.PReLU_0(x)
         return _activate(self.act, x)
@@ -327,9 +374,7 @@ class ResnetBlock(nn.Module):
         self._NormAct_0 = _NormAct(features, norm, act, dtype)
         self.Conv_1 = _conv(features, features, kernel_size, 1, True,
                             generator, kernel_init)
-        if norm == "batch":
-            self.BatchNorm_0 = BatchNorm(features, dtype=dtype)
-        self.norm = norm
+        _add_norm(self, norm, features, dtype)
         self._packed = None
         self._packed_key = None
 
@@ -366,9 +411,7 @@ class ResnetBlock(nn.Module):
         # (sr/nn/blocks.py:ResnetBlock): differentiable, and each conv a
         # site for an interceptor
         h = self._NormAct_0(_apply_conv(self.Conv_0, x, self.dtype))
-        h = _apply_conv(self.Conv_1, h, self.dtype)
-        if self.norm == "batch":
-            h = self.BatchNorm_0(h)
+        h = _apply_norm(self, _apply_conv(self.Conv_1, h, self.dtype))
         if self.res_scale != 1.0:
             h = h * torch.tensor(self.res_scale, dtype=h.dtype)
         return x + h
@@ -414,3 +457,37 @@ class PSBlock(nn.Module):
         if self.norm is not None:
             raise ValueError("a PSBlock with a norm has no pre-shuffle form")
         return self._NormAct_0(_apply_conv(self.Conv_0, x, self.dtype))
+
+
+class Upsample2xBlock(nn.Module):
+    """×2 upsampling by ``'deconv'``, ``'ps'`` (sub-pixel) or ``'rnc'``
+    (resize, then conv). (sr/nn/blocks.py:Upsample2xBlock; children named
+    as flax's: ``DeconvBlock_0``, ``PSBlock_0``, ``ConvBlock_0``)"""
+
+    def __init__(self, in_features: int, features: int,
+                 upsample: str = "deconv", act: str | None = "relu",
+                 norm: str | None = None, kernel_init: str | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(act=act, norm=norm, kernel_init=kernel_init, dtype=dtype,
+                  generator=generator)
+        self.upsample = upsample
+        if upsample == "deconv":
+            self.DeconvBlock_0 = DeconvBlock(in_features, features, 4, 2,
+                                             **kw)
+        elif upsample == "ps":
+            self.PSBlock_0 = PSBlock(in_features, features, 2, 3, **kw)
+        elif upsample == "rnc":
+            self.ConvBlock_0 = ConvBlock(in_features, features, 3, 1, **kw)
+        else:
+            raise ValueError(f"unknown upsample mode {upsample!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.upsample == "deconv":
+            return self.DeconvBlock_0(x)
+        if self.upsample == "ps":
+            return self.PSBlock_0(x)
+        # jax.image.resize(..., "nearest") at exactly ×2 repeats each pixel
+        return self.ConvBlock_0(F.interpolate(x, scale_factor=2,
+                                              mode="nearest"))

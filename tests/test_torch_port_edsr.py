@@ -158,12 +158,15 @@ def test_resnet_block_repacks_after_weight_change():
 
 def test_blocks_refuse_what_a_later_slice_brings():
     # PReLU and batch norm serve since SRResNet
-    # (tests/test_torch_srresnet_models.py); instance norm, which no zoo
-    # model uses, still waits
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        ConvBlock(3, 8, norm="instance")
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        ResnetBlock(16, norm="instance")
+    # (tests/test_torch_srresnet_models.py), instance norm since the CLI
+    # slice (tests/test_torch_blocks_menu.py): the menu is whole, and what
+    # is still refused is a norm that the JAX package does not have
+    assert hasattr(ConvBlock(3, 8, norm="instance")._NormAct_0, "GroupNorm_0")
+    assert not ResnetBlock(16, norm="instance").fused
+    with pytest.raises(ValueError, match="unknown norm"):
+        ConvBlock(3, 8, norm="layer")
+    with pytest.raises(ValueError, match="unknown norm"):
+        ResnetBlock(16, norm="layer")
 
 
 # --------------------------------------------------------------- model ----

@@ -321,8 +321,12 @@ def test_psblock_prelu_matches_flax_and_its_preshuffle_form():
 
 
 def test_instance_norm_and_unknown_menus_are_refused():
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        blocks.PSBlock(8, 8, 2, norm="instance")
+    # instance norm builds since the CLI slice
+    # (tests/test_torch_blocks_menu.py); an unknown norm is refused
+    assert hasattr(blocks.PSBlock(8, 8, 2, norm="instance")._NormAct_0,
+                   "GroupNorm_0")
+    with pytest.raises(ValueError, match="unknown norm"):
+        blocks.PSBlock(8, 8, 2, norm="layer")
     with pytest.raises(ValueError, match="unknown activation"):
         blocks.ConvBlock(3, 8, act="gelu")
     with pytest.raises(ValueError, match="pre-shuffle form"):
