@@ -213,6 +213,29 @@ Phases; any failure raises and exits non-zero without the final line:
    CPU (1e-3); (i) each kernel at the arguments captured in a train step
    and a predict, against its plain version and timed; (j) wall seconds,
    steps/s, images/s, export seconds, reported.
+15. Data parallel over processes and the sharded forward, the port's
+   counterpart of ``dryrun_multichip`` (children started with
+   ``subprocess``; one that fails fails the phase): (a) one process joins
+   a group of one through ``SR_COORDINATOR`` (NCCL); K=20 DDP steps of
+   full-width EDSR ×4 (bf16, crop 64, b32) equal the plain ``Trainer``'s
+   bit for bit (loss, params, generator), 2 shuffles a step; a K=20
+   dispatch of each timed with the card to itself; (b) two
+   processes share the card (gloo), f32, TF32 off, global b32: 3 EDSR
+   steps (loss within 1e-5 of one process's; params bit for bit those of
+   one process stepping on the same two halves, their distance to the b32
+   steps printed beside the two-halves run's own), then SRGAN's pretrain
+   and adversarial steps with batch statistics over the group (d/g loss
+   1e-4, G on a probe 1e-4, running statistics 1e-4), the processes
+   bit-equal, steps/s a process reported as one
+   shared card; (c) ``sharded_predict`` of phase 4's seeded EDSR on a
+   384×256 LR image over the same two processes: bf16 exact within one u8
+   level of the whole-image forward, int8 static fused bit for bit, 2 + 16
+   and 1 + 35 launches a band; each kernel at these paths' shapes against
+   its plain version and timed, with the launches the children counted at
+   that shape; (d) ``python -m sr_torch.main --mesh 1``
+   with ``SR_COORDINATOR`` writes what the one-process CLI writes, with
+   its launches and its params bit for bit. NCCL across two or more
+   cards is not run: the machine has one.
 
 It prints the bench's JSON line, a ``{"kernels": [...]}`` JSON line, then
 the card line, then as its last line ``{"ok": true, "device": {...}}``.
@@ -220,11 +243,13 @@ the card line, then as its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import functools
 import http.client
 import importlib.metadata
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -4152,14 +4177,16 @@ print(json.dumps({"counts": counts, "model_modules": bad}))
 
 class _OpCapture:
     """Inside ``with``, records the arguments (detached) of the first call
-    of each ``sr_torch`` operator at each distinct input shape and type (a
-    ``TorchDispatchMode``: it sees the calls an exported program makes, and
-    a train step's forward below autograd)."""
+    of each ``sr_torch`` operator at each distinct input shape and type,
+    and counts the calls at each (a ``TorchDispatchMode``: it sees the
+    calls an exported program makes, and a train step's forward below
+    autograd). ``seen``: key → arguments; ``calls``: key → calls."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
 
         seen: dict = {}
+        calls: collections.Counter = collections.Counter()
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -4168,14 +4195,20 @@ class _OpCapture:
                     x = args[0]
                     shapes = tuple(tuple(a.shape) for a in args[1:]
                                    if isinstance(a, torch.Tensor))
-                    seen.setdefault(
-                        (name.split("::")[1], tuple(x.shape), x.dtype,
-                         shapes),
-                        tuple(a.detach() if isinstance(a, torch.Tensor)
-                              else a for a in args))
+                    key = (name.split("::")[1], tuple(x.shape), x.dtype,
+                           shapes)
+                    calls[key] += 1
+                    if key not in seen:
+                        seen[key] = tuple(
+                            a.detach() if isinstance(a, torch.Tensor) else a
+                            for a in args)
                 return func(*args, **(kwargs or {}))
 
-        self.seen, self._mode = seen, Mode()
+        self.seen, self.calls, self._mode = seen, calls, Mode()
+
+    def counts(self) -> dict:
+        """``calls`` with each key as its ``str``, for a child's JSON."""
+        return {str(k): n for k, n in self.calls.items()}
 
     def __enter__(self):
         self._mode.__enter__()
@@ -4822,7 +4855,8 @@ def _cli_records(run_dir: Path) -> tuple[list[dict], list[dict]]:
             [r for r in recs if r.get("event") == "eval"])
 
 
-def _cli_run(argv: list[str], what: str) -> tuple[dict, dict, float]:
+def _cli_run(argv: list[str], what: str,
+             tag: str = "[14]") -> tuple[dict, dict, float]:
     """``sr_torch.main.main(argv)`` in this process, the kernels' counts
     zeroed just before and read just after, and the wall seconds of the
     run, of its fit, its eval and its export. Returns (launches, seconds,
@@ -4842,9 +4876,9 @@ def _cli_run(argv: list[str], what: str) -> tuple[dict, dict, float]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: c.launches for n, c in counters.items()}
-    check(rc == 0, f"[14] {what}: main returned {rc}")
+    check(rc == 0, f"{tag} {what}: main returned {rc}")
     seconds = {k: sum(v) for k, v in timed.seconds.items()}
-    print(f"[14] {what}: {wall:.1f} s, launches {launches}, "
+    print(f"{tag} {what}: {wall:.1f} s, launches {launches}, "
           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     return launches, seconds, wall
 
@@ -5197,6 +5231,656 @@ def phase_cli(card: str) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------------
+# phase 15: data parallel over processes and the sharded forward
+# ----------------------------------------------------------------------
+
+#: phase 15's files: the seeded EDSR's params, the LR image, each child's
+#: results and the CLI runs
+P15_DIR = ROOT / "build" / "chip_smoke" / "p15"
+#: (a): DDP steps of one dispatch, full-width EDSR ×4 bf16, crop 64, b32
+P15_K = 20
+#: (b): the steps held to the one-process run, then the steps timed
+P15_STEPS, P15_TIMED = 3, 5
+#: (c): the LR image (rows, columns) and the bands' halo (EDSR's
+#: receptive field, ``sr_torch.eval.tiling.RECEPTIVE_FIELD``)
+P15_LR, P15_HALO = (384, 256), 40
+#: seconds a child may take, and its group's collective timeout
+P15_TIMEOUT = 600
+#: (a): timed dispatches of each kind, after one warm-up dispatch
+P15_REPS = 5
+
+
+def _p15_pipe():
+    """The phase's sampler: 8 seeded 160² RGB images on the card, the
+    'matrix' ``PatchPipeline`` at crop 64, b32 (phase 6's)."""
+    from sr_torch.data.pipeline import PatchPipeline
+
+    corpus = np.random.default_rng(15).integers(0, 256, (8, 160, 160, 3),
+                                                np.uint8)
+    return PatchPipeline(list(corpus), crop_size=TRAIN_CROP, scale_factor=4,
+                         batch_size=TRAIN_BATCH, channels=3)
+
+
+def _p15_cfg(model: str, dtype: str, **kw):
+    from sr_torch.utils.config import SRConfig
+
+    return SRConfig(model_name=model, num_channels=3, scale_factor=4,
+                    crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH,
+                    dtype=dtype, **kw)
+
+
+def _p15_batches(pipe, n: int, seed: int) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [pipe(gen) for _ in range(n)]
+
+
+def _p15_gan_cfg():
+    """Full-width SRGAN ×4 in f32 with phase 14's synthetic VGG19."""
+    return _p15_cfg("SRGAN", "float32",
+                    vgg_weights_path=str(CLI_DATA / "vgg19_synthetic.pth"),
+                    vgg_output_layer="relu2_2")
+
+
+def _p15_probe() -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(153)
+    return torch.rand((2, 32, 32, 3), device="cuda", generator=gen)
+
+
+def _p15_edsr():
+    """Phase 4's seeded EDSR ×4 (bf16), from the params phase 15 saved."""
+    from sr_torch.models.registry import get_spec
+    from sr_torch.utils.checkpoint import load_params
+    from sr_torch.utils.interop import from_jax_params
+
+    model = get_spec("EDSR").make_model(_p15_cfg("EDSR", "bfloat16"))
+    from_jax_params(model, load_params(str(P15_DIR / "edsr.npz"))[0])
+    return model.cuda().eval()
+
+
+def _p15_counts() -> dict:
+    from sr_torch.kernels import ops
+
+    return {"depth_to_space": ops.depth_to_space.launches,
+            "fused_resblock": ops.fused_resblock.launches,
+            "int8_conv": ops.conv_int8_fused.launches}
+
+
+def _p15_zero() -> None:
+    from sr_torch.kernels import ops
+
+    for c in (ops.depth_to_space, ops.fused_resblock, ops.conv_int8_fused):
+        c.launches = 0
+
+
+def _p15_per_shape(cap: _OpCapture, counts: dict) -> dict:
+    """The launches a path made at each shape (``cap``'s calls, by
+    ``str`` of the key), checked against the wrappers' ``counts`` of the
+    same run: every launch is at one shape or another."""
+    by_name: collections.Counter = collections.Counter()
+    for key, n in cap.calls.items():
+        by_name["int8_conv" if key[0] == "conv_int8_fused" else key[0]] += n
+    check(all(by_name[k] == n for k, n in counts.items()),
+          f"launches by shape {dict(by_name)}, the wrappers' {counts}")
+    return cap.counts()
+
+
+def _p15_child_a(out: str) -> int:
+    """(a) One process, alone on the card: K steps of the plain
+    ``Trainer``, then the group of one through the ``SR_*`` environment
+    (NCCL) and K steps of the DDP ``Trainer`` from the same seed, its
+    counts zeroed just before and read just after, by kernel and by
+    shape; cuDNN deterministic. Each kind of dispatch is then timed, the
+    plain one before the group is up: one warm-up dispatch, then the
+    median of ``P15_REPS``. Writes the comparison, the counts and the
+    times."""
+    import torch.distributed as dist
+
+    from sr_torch.parallel.multihost import initialize_multihost
+    from sr_torch.train.trainer import Trainer
+
+    pipe, cfg = _p15_pipe(), _p15_cfg("EDSR", "bfloat16")
+    plain = Trainer(cfg)
+    ps = plain.init_state(0)
+    plain_multi = plain.make_multi_step(pipe, P15_K)
+    pm = float(plain_multi(ps)["loss"])
+    want = ([v.clone() for v in ps.model.state_dict().values()],
+            ps.generator.get_state())
+    ms = {"plain": time_ms(lambda: plain_multi(ps), n=P15_REPS, warmup=1)}
+    check(initialize_multihost(), "(a) no SR_* environment")
+    tr = Trainer(cfg)
+    check(tr.mesh.distributed and tr.mesh.world == 1
+          and dist.get_backend() == "nccl",
+          f"(a) the group: {tr.mesh}, {dist.get_backend()}")
+    state = tr.init_state(0)
+    multi = tr.make_multi_step(pipe, P15_K)
+    torch.cuda.synchronize()
+    _p15_zero()
+    with _OpCapture() as cap:
+        m = multi(state)
+    torch.cuda.synchronize()
+    launches = _p15_counts()
+    per_shape = _p15_per_shape(cap, launches)
+    equal = (float(m["loss"]) == pm and all(
+        torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                          want[0]))
+        and torch.equal(state.generator.get_state(), want[1]))
+    ms["ddp"] = time_ms(lambda: multi(state), n=P15_REPS, warmup=1)
+    dist.destroy_process_group()
+    Path(out).write_text(json.dumps({
+        "equal": equal, "loss": pm, "launches": launches,
+        "per_shape": per_shape, "ms": ms}))
+    return 0
+
+
+def _p15_child_bc(rank: int, rendezvous: str, out: str) -> int:
+    """(b) and (c) on one of two processes sharing the card (gloo): EDSR
+    f32 steps and SRGAN's pretrain and adversarial steps on the global
+    batch (TF32 off), then ``sharded_predict`` by the bf16 exact and
+    int8-static fused routes, each path's counts zeroed just before and
+    read just after."""
+    import torch.distributed as dist
+
+    from sr_torch.eval.tiling import sharded_predict
+    from sr_torch.infer import make_serving_predict
+    from sr_torch.parallel.multihost import initialize_multihost
+    from sr_torch.train.gan import GANTrainer
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.precision import no_tf32
+
+    initialize_multihost(f"file://{rendezvous}", 2, rank, backend="gloo",
+                         timeout_s=P15_TIMEOUT)
+    res: dict = {"rank": rank}
+    pipe = _p15_pipe()
+    with no_tf32():
+        tr = Trainer(_p15_cfg("EDSR", "float32"))
+        state = tr.init_state(0)
+        batches = _p15_batches(pipe, P15_STEPS + P15_TIMED, 151)
+        torch.cuda.synchronize()
+        _p15_zero()
+        with _OpCapture() as cap:
+            res["edsr_loss"] = [float(tr.train_step(state, b)[1]["loss"])
+                                for b in batches[:P15_STEPS]]
+        res["edsr_launches"] = _p15_counts()
+        res["edsr_per_shape"] = _p15_per_shape(cap, res["edsr_launches"])
+        edsr = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        edsr_fn = tr.predict(state, _p15_probe()).cpu()
+        t0 = time.perf_counter()
+        for b in batches[P15_STEPS:]:
+            tr.train_step(state, b)
+        torch.cuda.synchronize()
+        res["edsr_steps_per_s"] = P15_TIMED / (time.perf_counter() - t0)
+        gtr = GANTrainer(_p15_gan_cfg())
+        g, d = gtr.init_states(0)
+        b0, b1 = _p15_batches(pipe, 2, 152)
+        torch.cuda.synchronize()
+        _p15_zero()
+        t0 = time.perf_counter()
+        m0 = gtr.pretrain_step(g, b0)[1]
+        m1 = gtr.adversarial_step(g, d, b1)[2]
+        torch.cuda.synchronize()
+        res["gan_s"] = time.perf_counter() - t0
+        res["gan_launches"] = _p15_counts()
+        res["gan"] = {k: float(v) for k, v in {**m0, **m1}.items()}
+        torch.save({"edsr": edsr, "edsr_fn": edsr_fn,
+                    "fn": gtr.predict(g, _p15_probe()).cpu(),
+                    "g_stats": g.batch_stats, "d_stats": d.batch_stats},
+                   f"{out}.pt")
+    del tr, state, gtr, g, d, batches
+    model = _p15_edsr()
+    x = torch.load(P15_DIR / "x.pt").cuda()
+    routes = {"exact": make_serving_predict(model, fused=False),
+              "static": make_serving_predict(model, fused=True,
+                                             quantize="static",
+                                             calib_batches=[x])}
+    outs = {}
+    with torch.inference_mode():
+        for route, fn in routes.items():
+            torch.cuda.synchronize()
+            _p15_zero()
+            with _OpCapture() as cap:
+                outs[route] = sharded_predict(fn, x, halo=P15_HALO).cpu()
+            torch.cuda.synchronize()
+            res[f"{route}_launches"] = _p15_counts()
+            res[f"{route}_per_shape"] = _p15_per_shape(
+                cap, res[f"{route}_launches"])
+    torch.save(outs, f"{out}.sharded.pt")
+    dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def _p15_child(argv: list[str]) -> int:
+    """Entry point of phase 15's children (:data:`_P15_RUN`)."""
+    torch.backends.cudnn.deterministic = True
+    if argv[0] == "a":
+        return _p15_child_a(argv[1])
+    return _p15_child_bc(int(argv[1]), argv[2], argv[3])
+
+
+#: run as ``python -c``: this script imported as a module, then one child
+#: of phase 15
+_P15_RUN = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "sys.exit(chip_smoke._p15_child(sys.argv[2:]))")
+
+
+def _p15_start(args: list[str], env: dict | None = None):
+    return subprocess.Popen(
+        [sys.executable, "-c", _P15_RUN, str(ROOT), *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, **(env or {})})
+
+
+def _p15_wait(procs: dict) -> None:
+    """Wait for every child (``P15_TIMEOUT`` s each at most); a child that
+    fails fails the phase, and the others are killed."""
+    try:
+        for name, proc in procs.items():
+            log = proc.communicate(timeout=P15_TIMEOUT)[0]
+            check(proc.returncode == 0, f"[15] child {name} exited "
+                  f"{proc.returncode}:\n{log[-4000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _p15_reference() -> dict:
+    """The one-process runs (b) and (c) are held to, in this process while
+    the children run: the same seeds, batches and image."""
+    from sr_torch.infer import make_serving_predict
+    from sr_torch.quant import to_u8
+    from sr_torch.train.gan import GANTrainer
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.device import deterministic_cudnn
+    from sr_torch.utils.precision import no_tf32
+
+    ref: dict = {}
+    pipe = _p15_pipe()
+    # the children's cuDNN mode: the same algorithms, so the steps on the
+    # same halves can agree bit for bit
+    with deterministic_cudnn(), no_tf32():
+        tr = Trainer(_p15_cfg("EDSR", "float32"))
+        state = tr.init_state(0)
+        batches = _p15_batches(pipe, P15_STEPS, 151)
+        ref["edsr_loss"] = [float(tr.train_step(state, b)[1]["loss"])
+                            for b in batches]
+        ref["edsr"] = {k: v.cpu() for k, v in
+                       state.model.state_dict().items()}
+        ref["edsr_fn"] = tr.predict(state, _p15_probe()).cpu()
+        # the same steps with each batch's gradient summed from its two
+        # halves, the rows each process holds: the arithmetic DDP does
+        state = tr.init_state(0)
+        for b in batches:
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            for rows in (slice(0, TRAIN_BATCH // 2),
+                         slice(TRAIN_BATCH // 2, None)):
+                loss = tr.loss_fn(state.model, {k: v[rows] for k, v in
+                                                b.items()}, state.step)[0]
+                (loss / 2).backward()
+            state.tx.step(state.optimizer, state.step)
+            state.step += 1
+        ref["edsr_halves"] = {k: v.cpu() for k, v in
+                              state.model.state_dict().items()}
+        gtr = GANTrainer(_p15_gan_cfg())
+        g, d = gtr.init_states(0)
+        b0, b1 = _p15_batches(pipe, 2, 152)
+        m0 = gtr.pretrain_step(g, b0)[1]
+        m1 = gtr.adversarial_step(g, d, b1)[2]
+        ref["gan"] = {k: float(v) for k, v in {**m0, **m1}.items()}
+        ref["fn"] = gtr.predict(g, _p15_probe()).cpu()
+        ref["g_stats"], ref["d_stats"] = g.batch_stats, d.batch_stats
+    del tr, state, gtr, g, d
+    model = _p15_edsr()
+    x = torch.load(P15_DIR / "x.pt").cuda()
+    with torch.inference_mode():
+        ref["exact"] = to_u8(model(x)).cpu()
+        static = make_serving_predict(model, fused=True, quantize="static",
+                                      calib_batches=[x])
+        ref["static"] = static(x).cpu()
+    return ref
+
+
+def _tree_rel(a: dict, b: dict) -> tuple[float, float, float]:
+    """Three relative errors over two dicts of tensors, each the largest
+    over the tensors: ‖a − b‖₂ / ‖b‖₂; max |a − b| / max |b|; and
+    ``dryrun_multichip``'s elementwise max |a − b| / (|b| + 1e-6). After
+    Adam steps the last two see single weights whose gradient is near
+    zero, which either run may step by ±lr (Adam's g / (√v + ε) turns the
+    reduction order's noise into a whole step); the first does not."""
+    l2, per, elem = 0.0, 0.0, 0.0
+    for k, w in b.items():
+        g, w = a[k].double(), w.double()
+        diff = (g - w).abs()
+        l2 = max(l2, float(diff.norm() / w.norm().clamp_min(1e-30)))
+        per = max(per, float(diff.max() / w.abs().max().clamp_min(1e-30)))
+        elem = max(elem, float((diff / (w.abs() + 1e-6)).max()))
+    return l2, per, elem
+
+
+def _stats_diff(a, b) -> float:
+    """max |a − b| over two nested dicts of arrays (batch statistics;
+    absolute, as a running mean near 0 makes a relative one ill-posed)."""
+    if isinstance(b, dict):
+        return max(_stats_diff(a[k], v) for k, v in b.items())
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _p15_check_b(card: str, res: list[dict], outs: list[dict],
+                 ref: dict) -> None:
+    """(b) Each process against the one-process run: the losses with
+    ``dryrun_multichip``'s bounds, and EDSR's params bit for bit against
+    one process stepping on the same two halves, the arithmetic DDP does
+    (the same cuDNN algorithms at the same shapes; the average of two is
+    exact); SRGAN with ``dryrun_multichip``'s bounds, the probe's
+    tightened; the processes against each other.
+    EDSR's distances to the one-process b32 steps are printed beside that
+    run's own distance from its steps on the two halves: Adam turns the
+    summation order's noise on near-zero gradients into whole ±lr steps,
+    so three steps apart the b32 and the two-halves runs differ by what
+    the DDP run differs from the b32 one. Everything is measured, then
+    checked."""
+    loss_rel = max(abs(a - b) / abs(b) for r in res for a, b in zip(
+        r["edsr_loss"], ref["edsr_loss"]))
+    gan_rel = {k: max(abs(r["gan"][k] - ref["gan"][k]) / abs(ref["gan"][k])
+                      for r in res) for k in ("d_loss", "g_loss",
+                                              "g_content_loss")}
+    halves = _tree_rel(outs[0]["edsr"], ref["edsr_halves"])
+    halves_equal = all(torch.equal(outs[0]["edsr"][k], w)
+                       for k, w in ref["edsr_halves"].items())
+    b32 = _tree_rel(outs[0]["edsr"], ref["edsr"])
+    own = _tree_rel(ref["edsr_halves"], ref["edsr"])
+    fn_b32 = float((outs[0]["edsr_fn"] - ref["edsr_fn"]).abs().max())
+    fn = float((outs[0]["fn"] - ref["fn"]).abs().max())
+    g_st = _stats_diff(outs[0]["g_stats"], ref["g_stats"])
+    d_st = _stats_diff(outs[0]["d_stats"], ref["d_stats"])
+    same = (all(torch.equal(a, b) for a, b in zip(
+        outs[0]["edsr"].values(), outs[1]["edsr"].values()))
+        and _stats_diff(outs[0]["g_stats"], outs[1]["g_stats"]) == 0
+        and _stats_diff(outs[0]["d_stats"], outs[1]["d_stats"]) == 0)
+    print(f"[15] (b) two processes (gloo) on one card against one process, "
+          f"f32, TF32 off, cuDNN deterministic, global b{TRAIN_BATCH} crop "
+          f"{TRAIN_CROP}: EDSR {P15_STEPS} steps loss rel {loss_rel:.3g} "
+          f"(1e-5); params against one process on the same halves: bit for "
+          f"bit {halves_equal} (relative L2 {halves[0]:.3g}, {halves[1]:.3g} "
+          f"of a tensor's largest, elementwise {halves[2]:.3g}); against the "
+          f"b32 "
+          f"steps (reported): relative L2 {b32[0]:.3g}, {b32[1]:.3g} of a "
+          f"tensor's largest, elementwise {b32[2]:.3g}, on a probe "
+          f"{fn_b32:.3g}, where the one-process halves run is {own[0]:.3g}, "
+          f"{own[1]:.3g}, {own[2]:.3g} from it; SRGAN pretrain + "
+          f"adversarial loss rel d {gan_rel['d_loss']:.3g} g "
+          f"{gan_rel['g_loss']:.3g} (1e-4), G on a probe {fn:.3g} (1e-4), "
+          f"running statistics G {g_st:.3g} D {d_st:.3g} (1e-4); the "
+          f"processes' params and statistics bit-equal: {same} | {card}")
+    print("[15] (b) per process on one shared card (ungated, not multi-GPU "
+          "speed): EDSR f32 "
+          + " / ".join(f"{r['edsr_steps_per_s']:.2f}" for r in res)
+          + " steps/s; SRGAN pretrain + adversarial step "
+          + " / ".join(f"{r['gan_s']:.3f}" for r in res) + f" s | {card}")
+    for r in res:
+        want = {"depth_to_space": 2 * P15_STEPS, "fused_resblock": 0,
+                "int8_conv": 0}
+        check(r["edsr_launches"] == want, f"(b) EDSR launches "
+              f"{r['edsr_launches']}, want {want}")
+        want = {"depth_to_space": 2 + 4, "fused_resblock": 0,
+                "int8_conv": 0}
+        check(r["gan_launches"] == want, f"(b) SRGAN launches "
+              f"{r['gan_launches']}, want {want} (2 a pretrain step, 4 an "
+              "adversarial one)")
+    check(loss_rel <= 1e-5, f"(b) EDSR loss rel {loss_rel:.3g}")
+    check(halves_equal, f"(b) EDSR params differ from one process's on "
+          f"the same halves: {halves}")
+    check(max(gan_rel.values()) <= 1e-4, f"(b) SRGAN losses {gan_rel}")
+    # G on the probe at 1e-4, not dryrun_multichip's 3e-4: per-process
+    # batch statistics move it by less than 3e-4 after these two steps
+    check(fn <= 1e-4 and g_st <= 1e-4 and d_st <= 1e-4,
+          f"(b) SRGAN after its steps: G on the probe {fn:.3g} (1e-4), "
+          f"running statistics G {g_st:.3g} D {d_st:.3g} (1e-4)")
+    check(same, "(b) the two processes' EDSR params or SRGAN running "
+          "statistics differ")
+
+
+def _p15_check_c(card: str, res: list[dict], outs: list[dict],
+                 ref: dict) -> None:
+    """(c) Each process holds the whole output: the exact route within one
+    u8 level of the whole-image forward, the int8-static fused route bit
+    for bit (else its measured bound, within one level)."""
+    from sr_torch.quant import to_u8
+
+    want = {"exact": {"depth_to_space": 2, "fused_resblock": 16,
+                      "int8_conv": 0},
+            "static": {"depth_to_space": 1, "fused_resblock": 0,
+                       "int8_conv": 35}}
+    for r in res:
+        for route, w in want.items():
+            check(r[f"{route}_launches"] == w,
+                  f"(c) {route} band launches {r[f'{route}_launches']}, "
+                  f"want {w}")
+    for route in ("exact", "static"):
+        check(torch.equal(outs[0][route], outs[1][route]),
+              f"(c) the processes' {route} outputs differ")
+    got = to_u8(outs[0]["exact"])
+    hr = tuple(4 * s for s in P15_LR)
+    check(tuple(got.shape) == (1, *hr, 3), f"(c) shape {tuple(got.shape)}")
+    exact = int((got.int() - ref["exact"].int()).abs().max())
+    check(exact <= 1, f"(c) bf16 exact sharded vs whole: {exact} levels")
+    static = outs[0]["static"]
+    bit = torch.equal(static, ref["static"])
+    err = float((static.double() - ref["static"].double()).abs().max())
+    levels = int((to_u8(static).int() - to_u8(ref["static"]).int())
+                 .abs().max())
+    check(bit or levels <= 1, f"(c) int8 static fused sharded vs whole: "
+          f"max {err:.3g}, {levels} u8 levels")
+    print(f"[15] (c) sharded_predict over 2 processes (gloo) on one card, "
+          f"EDSR x4 bf16 on a {P15_LR[0]}x{P15_LR[1]} LR image, 2 bands of "
+          f"{P15_LR[0] // 2} rows + halo {P15_HALO}: bf16 exact within "
+          f"{exact} u8 level of the whole-image forward; int8 static fused "
+          + ("bit for bit" if bit else
+             f"NOT bit for bit: max |sharded - whole| {err:.3g}, {levels} "
+             "u8 levels") + f"; per band 2 + 16 and 1 + 35 launches | {card}")
+
+
+def _p15_kernel_rows(card: str, measured: dict) -> list[dict]:
+    """The kernels at the arguments phase 15's paths give them, captured in
+    this process at the same shapes: (a)'s DDP step (bf16, b32), a (b)
+    process's step (f32, b16), a band of (c) by each route. Each against
+    its plain version and timed as phase 13 times them; each row with the
+    launches its shape made on its path, as the children counted them
+    (``measured``: path → ``str`` of the key → launches). The shapes
+    captured here must be the shapes the path launched."""
+    from sr_torch.infer import make_serving_predict
+    from sr_torch.train.trainer import Trainer
+    from sr_torch.utils.precision import no_tf32
+
+    def rows_of(cap, path, route, desc):
+        got = {str(k) for k in cap.seen}
+        check(got == set(measured[path]), f"[15] {desc}: shapes captured "
+              f"here {sorted(got)}, launched on the path "
+              f"{sorted(measured[path])}")
+        return [_captured_row(card, key, args, measured[path][str(key)],
+                              route, tag="[15]", path=f"phase 15 {desc}")
+                for key, args in cap.seen.items()]
+
+    rows = []
+    batch = _p15_batches(_p15_pipe(), 1, 154)[0]
+    half = {k: v[:TRAIN_BATCH // 2] for k, v in batch.items()}
+    for dtype, b, path, desc in (
+            ("bfloat16", batch, "a", "(a) DDP step, NCCL world 1"),
+            ("float32", half, "b",
+             "(b) DDP step of one of 2 gloo processes")):
+        with no_tf32():
+            tr = Trainer(_p15_cfg("EDSR", dtype))
+            state = tr.init_state(0)
+            with _OpCapture() as cap:
+                tr.train_step(state, b)
+            rows += rows_of(cap, path, "train step", desc)
+    del tr, state
+    model = _p15_edsr()
+    x = torch.load(P15_DIR / "x.pt").cuda()
+    window = x[:, :P15_LR[0] // 2 + P15_HALO]  # each band's window
+    for route, fn in (("exact", make_serving_predict(model, fused=False)),
+                      ("static", make_serving_predict(
+                          model, fused=True, quantize="static",
+                          calib_batches=[x]))):
+        with torch.inference_mode(), _OpCapture() as cap:
+            fn(window)
+        rows += rows_of(cap, route, f"{route} band",
+                        f"(c) sharded_predict {route} band")
+    return rows
+
+
+#: (d)'s child: ``python -m sr_torch.main ARGV`` (``runpy``), the kernels'
+#: counts zeroed just before and printed just after
+_P15_CLI_CHILD = r"""
+import json, runpy, sys
+from sr_torch.kernels import ops
+counters = {"depth_to_space": ops.depth_to_space,
+            "fused_resblock": ops.fused_resblock}
+for c in counters.values():
+    c.launches = 0
+sys.argv = ["sr_torch.main", *json.loads(sys.argv[1])]
+try:
+    runpy.run_module("sr_torch.main", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "launches": {n: c.launches
+                                         for n, c in counters.items()}}))
+"""
+
+
+def _p15_cli(card: str) -> float:
+    """(d) ``python -m sr_torch.main --mesh 1`` with ``SR_COORDINATOR``
+    (NCCL, world 1), EDSR ×4 at full width, 2 × 20 steps on the procedural
+    split phase 14 made, the synthetic test set, both exports; against the
+    one-process CLI in this process with the same flags: the same files,
+    the same launches, the params bit for bit. Returns the seconds."""
+    t0 = time.perf_counter()
+    runs = P15_DIR / "cli"
+
+    def argv(save):
+        return _cli_argv(save, "--export", "--export_torch",
+                         test="synthetic") + ["--steps_per_epoch", "20",
+                                              "--mesh", "1"]
+
+    one, _, one_wall = _cli_run(argv(runs / "one"), "(d) one process",
+                                tag="[15]")
+    proc = subprocess.run(
+        [sys.executable, "-c", _P15_CLI_CHILD, json.dumps(argv(runs / "mh"))],
+        cwd=ROOT, capture_output=True, text=True, timeout=P15_TIMEOUT,
+        env={**os.environ,
+             "SR_COORDINATOR": f"file://{P15_DIR / 'cli_rendezvous'}",
+             "SR_NUM_PROCESSES": "1", "SR_PROCESS_ID": "0"})
+    check(proc.returncode == 0, f"(d) the CLI child exited "
+          f"{proc.returncode}:\n{(proc.stdout + proc.stderr)[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(child["rc"] == 0 and "[multihost] process 0/1" in proc.stdout,
+          f"(d) the CLI child: rc {child['rc']}, or no '[multihost] "
+          "process 0/1' line")
+    check(child["launches"] == one and one["depth_to_space"] > 0,
+          f"(d) launches {child['launches']}, the one-process CLI's {one}")
+
+    def tree(run):  # TensorBoard's event files carry a host, time and pid
+        return sorted(re.sub(r"events\.out\.tfevents\..*", "events", str(
+            p.relative_to(run))) for p in run.rglob("*") if p.is_file())
+
+    a, b = runs / "one" / "EDSR_x4", runs / "mh" / "EDSR_x4"
+    check(tree(a) == tree(b), f"(d) run directories differ: {tree(a)} vs "
+          f"{tree(b)}")
+    check(_npz_equal(a / "EDSR_params.npz", b / "EDSR_params.npz"),
+          "(d) the params differ from the one-process CLI's")
+    seconds = time.perf_counter() - t0
+    print(f"[15] (d) python -m sr_torch.main --mesh 1 with SR_COORDINATOR "
+          f"(NCCL, world 1): {len(tree(b))} files, as the one-process "
+          f"CLI's, params bit for bit, launches {child['launches']}; "
+          f"one-process run {one_wall:.1f} s, (d) {seconds:.1f} s | {card}")
+    return seconds
+
+
+def phase_multigpu(card: str) -> list[dict]:
+    """Phase 15: the port's data parallelism over processes and its
+    sharded forward, the counterpart of ``dryrun_multichip``: (a) NCCL,
+    one process through the ``SR_*`` environment, K DDP steps == the plain
+    trainer's bit for bit; (b) two processes on the one card (gloo), EDSR
+    f32 and SRGAN steps against the one-process run; (c)
+    ``sharded_predict`` over the same two processes against the
+    whole-image forward; the kernels at these paths' shapes; (d) ``python
+    -m sr_torch.main --mesh 1`` with ``SR_COORDINATOR`` against the
+    one-process CLI. NCCL across two or more cards needs a machine with
+    them; this card runs one. Returns the kernels-line rows."""
+    from sr_torch.utils.checkpoint import save_params
+    from sr_torch.utils.interop import to_jax_params
+
+    t0 = time.perf_counter()
+    shutil.rmtree(P15_DIR, ignore_errors=True)
+    P15_DIR.mkdir(parents=True)
+    _, model = _seeded_edsr("bfloat16")
+    save_params(str(P15_DIR / "edsr.npz"), to_jax_params(model))
+    del model
+    torch.save(torch.rand((1, *P15_LR, 3), generator=torch.Generator()
+                          .manual_seed(155)), P15_DIR / "x.pt")
+    a_out = P15_DIR / "a.json"
+    # (a) alone on the card, so its dispatch times share it with nothing
+    _p15_wait({"a": _p15_start(["a", str(a_out)], env={
+        "SR_COORDINATOR": f"localhost:{_free_port()}",
+        "SR_NUM_PROCESSES": "1", "SR_PROCESS_ID": "0"})})
+    procs = {}
+    for rank in range(2):
+        procs[f"bc{rank}"] = _p15_start(
+            ["bc", str(rank), str(P15_DIR / "rendezvous"),
+             str(P15_DIR / f"bc{rank}")])
+    try:
+        ref = _p15_reference()
+    finally:
+        _p15_wait(procs)
+    res_a = json.loads(a_out.read_text())
+    check(res_a["equal"], f"(a) {P15_K} DDP steps (NCCL, world 1) differ "
+          "from the plain trainer's: loss, params or generator")
+    want = {"depth_to_space": 2 * P15_K, "fused_resblock": 0,
+            "int8_conv": 0}
+    check(res_a["launches"] == want, f"(a) launches {res_a['launches']}, "
+          f"want {want}")
+    print(f"[15] (a) EDSR x4 bf16 crop {TRAIN_CROP} b{TRAIN_BATCH}, NCCL "
+          f"world 1 through SR_COORDINATOR: {P15_K} DDP steps == the plain "
+          f"trainer's bit for bit (loss {res_a['loss']:.6f}, params, "
+          f"generator), {res_a['launches']['depth_to_space']} shuffles; a "
+          f"K={P15_K} dispatch alone on the card, the median of {P15_REPS} "
+          f"after one warm-up: {res_a['ms']['plain']:.1f} ms plain, "
+          f"{res_a['ms']['ddp']:.1f} ms DDP | {card}")
+    res = [json.loads((P15_DIR / f"bc{r}").read_text()) for r in range(2)]
+    outs = [torch.load(P15_DIR / f"bc{r}.pt", weights_only=False)
+            for r in range(2)]
+    _p15_check_b(card, res, outs, ref)
+    outs = [torch.load(P15_DIR / f"bc{r}.sharded.pt") for r in range(2)]
+    _p15_check_c(card, res, outs, ref)
+    del ref, outs
+    torch.cuda.empty_cache()
+    check(res[0]["edsr_per_shape"] == res[1]["edsr_per_shape"],
+          "(b) the processes launched at different shapes")
+    measured = {"a": res_a["per_shape"]}  # (b), (c): both processes'
+    for path, key in (("b", "edsr"), ("exact", "exact"),
+                      ("static", "static")):
+        measured[path] = dict(sum((collections.Counter(
+            r[f"{key}_per_shape"]) for r in res), collections.Counter()))
+    rows = _p15_kernel_rows(card, measured)
+    d_s = _p15_cli(card)
+    print(f"[15] phase seconds {time.perf_counter() - t0:.1f} ((d) "
+          f"{d_s:.1f}) | {card}")
+    return rows
+
+
 BENCH_KEYS = ("value", "vs_baseline", "bf16_exact_mps", "bf16_fused_mps",
               "bf16_fused_vs_baseline", "bf16_best_mps")
 
@@ -5306,6 +5990,8 @@ def main() -> int:
     entries += phase_artifacts(card)
     torch.cuda.empty_cache()
     entries += phase_cli(card)
+    torch.cuda.empty_cache()
+    entries += phase_multigpu(card)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -25,9 +25,17 @@ cuDNN runs its deterministic algorithms for the whole of ``main``
 (``sr_torch.utils.device.deterministic_cudnn``), so a resumed run ends with
 the uninterrupted run's weights bit for bit on the card.
 
-Multi-GPU is ROADMAP Queue A 10: ``--mesh`` parses as in JAX and the
-trainers refuse any shape but ()/(1,); the JAX package's multihost
-bootstrap (``SR_COORDINATOR``/``SR_MULTIHOST``) is refused here.
+Several processes, one per card: start each with ``SR_COORDINATOR``
+(``host:port`` or ``file:///shared/path``), ``SR_NUM_PROCESSES`` and
+``SR_PROCESS_ID``, or through torchrun with ``SR_MULTIHOST=auto``; ``main``
+brings the group up first (``sr_torch.parallel.multihost``, NCCL, or gloo
+with ``--device cpu``), prints ``[multihost] process i/n`` as the JAX
+package does, and drives ``cuda:<local card>``. ``--mesh`` (default: every
+process on the ``data`` axis) reaches the trainers, which train on the
+global batch over the group. Only the coordinator writes the run
+directory: logs, sample renders, ``loss.png``, the params, the eval's
+panels and images, the exports (checkpoints through the ``Checkpointer``);
+the other processes wait at a barrier.
 """
 
 from __future__ import annotations
@@ -38,12 +46,16 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sr_torch.data.datasets import get_test_set, get_training_set
 from sr_torch.data.pipeline import PatchPipeline, build_patch_pipeline
 from sr_torch.eval.panels import plot_loss, plot_test_result, save_img
 from sr_torch.eval.runner import evaluate
 from sr_torch.models.registry import available_models, get_spec
+from sr_torch.parallel.multihost import (
+    barrier, initialize_multihost, is_coordinator, process_count,
+    process_index)
 from sr_torch.utils.checkpoint import Checkpointer, run_meta, save_params
 from sr_torch.utils.config import SRConfig
 from sr_torch.utils.device import deterministic_cudnn, resolve_device
@@ -78,8 +90,8 @@ def parse_args(argv=None):
     p.add_argument("--steps_per_epoch", type=int, default=d.steps_per_epoch)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--mesh", type=int, nargs="*", default=None,
-                   help="mesh shape; multi-GPU is ROADMAP Queue A 10, so "
-                        "only () and (1,) train")
+                   help="mesh shape over the processes, e.g. --mesh 8 for "
+                        "8-way data parallel (one process per card)")
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--eval_only", action="store_true")
     p.add_argument("--vgg_weights_path", default=None)
@@ -236,26 +248,56 @@ def _make_sample_hook(cfg: SRConfig, run_dir: str, predict, batch):
     return hook
 
 
-def refuse_multihost() -> None:
-    """The JAX package's multihost bootstrap starts on ``SR_COORDINATOR``
-    or ``SR_MULTIHOST``; the port has no multi-process run yet."""
-    for var in ("SR_COORDINATOR", "SR_MULTIHOST"):
-        if os.environ.get(var):
-            raise NotImplementedError(
-                f"{var} is set: multi-host training lands in a later port "
-                "slice (ROADMAP Queue A 10); the port trains on one device")
+class _NoLog:
+    """The loggers of a process that writes nothing (not the
+    coordinator)."""
+
+    active = False
+
+    def __call__(self, record: dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _device_flag(argv) -> str:
+    """``--device`` alone, before the group is up (``parse_args`` makes the
+    run directory)."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda")
+    return pre.parse_known_args(argv)[0].device
 
 
 @deterministic_cudnn()
 def main(argv=None) -> int:
-    refuse_multihost()
+    # multi-process bootstrap (no-op unless SR_COORDINATOR/SR_MULTIHOST is
+    # set — see sr_torch/parallel/multihost.py), before anything else
+    cpu = torch.device(_device_flag(argv)).type == "cpu"
+    group = initialize_multihost(backend="gloo" if cpu else None)
+    if group:
+        print(f"[multihost] process {process_index()}/{process_count()}")
+    try:
+        return _main(argv, group)
+    finally:
+        if group:
+            dist.destroy_process_group()
+
+
+def _main(argv, group: bool) -> int:
     cfg, (eval_only, fast_eval, export, export_torch, self_ensemble,
           device) = parse_args(argv)
+    if group and torch.device(device).type == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"
     device = resolve_device(device)
     spec = get_spec(cfg.model_name)
     run_dir = _run_dir(cfg)
-    jsonl = JSONLLogger(os.path.join(run_dir, "metrics.jsonl"))
-    tb = TensorBoardLogger(os.path.join(run_dir, "logs"))
+    writer = is_coordinator()
+    if writer:
+        jsonl = JSONLLogger(os.path.join(run_dir, "metrics.jsonl"))
+        tb = TensorBoardLogger(os.path.join(run_dir, "logs"))
+    else:
+        jsonl = tb = _NoLog()
     print(f"model={cfg.model_name} scale=x{cfg.scale_factor} "
           f"device={device} dtype={cfg.dtype}")
 
@@ -293,7 +335,7 @@ def main(argv=None) -> int:
                 d_checkpointer=ck_d, log_cb=jsonl,
                 epoch_hook=_make_sample_hook(
                     cfg, run_dir, lambda s, x: tr.predict(s, x), b0
-                ),
+                ) if writer else None,
             )
         model = g_state.model
         predict = lambda x: tr.predict(g_state, x)  # noqa: E731
@@ -330,40 +372,44 @@ def main(argv=None) -> int:
             state = tr.fit(
                 state, pipe, checkpointer=ck, log_cb=log_cb,
                 eval_hook=_make_sample_hook(
-                    cfg, run_dir, lambda s, x: predict_fn(s.model, x), b0),
+                    cfg, run_dir, lambda s, x: predict_fn(s.model, x), b0
+                ) if writer else None,
             )
-            if epoch_losses:
+            if epoch_losses and writer:
                 plot_loss(epoch_losses, os.path.join(run_dir, "loss.png"),
                           title=f"{cfg.model_name} x{cfg.scale_factor}")
         model = state.model
         predict = lambda x: predict_fn(model, x)  # noqa: E731
 
-    # the npz is written from the LIVE weights, so it always matches the
-    # weights just trained or evaluated (a resumed run's checkpoint can be
-    # newer than an npz written before; the export must not ship stale
-    # params)
-    save_params(os.path.join(run_dir, f"{cfg.model_name}_params.npz"),
-                to_jax_params(model), to_jax_batch_stats(model))
-    if self_ensemble:
-        from sr_torch.eval.ensemble import make_self_ensemble_predict
+    if writer:  # the other processes wait for it at the barrier
+        # the npz is written from the LIVE weights, so it always matches
+        # the weights just trained or evaluated (a resumed run's checkpoint
+        # can be newer than an npz written before; the export must not
+        # ship stale params)
+        save_params(os.path.join(run_dir, f"{cfg.model_name}_params.npz"),
+                    to_jax_params(model), to_jax_batch_stats(model))
+        if self_ensemble:
+            from sr_torch.eval.ensemble import make_self_ensemble_predict
 
-        # below run_eval's static tiling: a per-tile D4 ensemble is exact
-        # (sr_torch/eval/ensemble.py)
-        predict = make_self_ensemble_predict(predict)
-        print("[eval] geometric self-ensemble enabled (8 forwards per image)")
-    summary = run_eval(cfg, spec, predict, run_dir, log=print,
-                       fast=fast_eval, device=device)
-    if self_ensemble:
-        summary["self_ensemble"] = True
-    jsonl({"event": "eval", **summary})
-    if export:
-        print(f"[export] {export_artifact(cfg, spec, run_dir, device)}")
-    if export_torch:
-        from sr_torch.utils.refckpt import export_reference_checkpoint
+            # below run_eval's static tiling: a per-tile D4 ensemble is
+            # exact (sr_torch/eval/ensemble.py)
+            predict = make_self_ensemble_predict(predict)
+            print("[eval] geometric self-ensemble enabled (8 forwards per "
+                  "image)")
+        summary = run_eval(cfg, spec, predict, run_dir, log=print,
+                           fast=fast_eval, device=device)
+        if self_ensemble:
+            summary["self_ensemble"] = True
+        jsonl({"event": "eval", **summary})
+        if export:
+            print(f"[export] {export_artifact(cfg, spec, run_dir, device)}")
+        if export_torch:
+            from sr_torch.utils.refckpt import export_reference_checkpoint
 
-        pkl = os.path.join(run_dir, f"{cfg.model_name}_param.pkl")
-        print("[export_torch] " + export_reference_checkpoint(
-            cfg.model_name, model, pkl))
+            pkl = os.path.join(run_dir, f"{cfg.model_name}_param.pkl")
+            print("[export_torch] " + export_reference_checkpoint(
+                cfg.model_name, model, pkl))
+    barrier()
     jsonl.close()
     tb.close()
     return 0

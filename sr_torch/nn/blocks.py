@@ -25,7 +25,12 @@ parameter's path reads the same in both packages.
   mode (``module.train()``) normalizes with the batch's statistics and
   updates the running ones, unless :func:`frozen_batch_stats` is active;
   eval mode uses the running ones. Parameters ``scale``/``bias`` and
-  buffers ``mean``/``var`` carry flax's names.
+  buffers ``mean``/``var`` carry flax's names. Under data parallelism
+  (``sr_torch.parallel.replicate`` sets ``sync``) a train-mode forward
+  takes E[x] and E[x²] over the whole group's batch, as flax's statistics
+  are over the global batch under GSPMD: the per-process means are
+  averaged with their gradient (one ``all_reduce`` forward, one
+  backward), so the running statistics agree on every process.
 * :class:`InstanceNorm` is ``flax.linen.GroupNorm(num_groups=None,
   group_size=1)``: per sample and channel, the mean and E[x²] − E[x]²
   (clipped at 0) over H and W in float32, eps 1e-6 (flax's default), the
@@ -83,6 +88,7 @@ from sr_torch.kernels.fused_resblock import (
     fused_resblock, pack_wgmma_weights, pack_weights)
 from sr_torch.nn import intercept
 from sr_torch.nn.init import get_kernel_init
+from sr_torch.parallel.multihost import mean_over_replicas
 
 _ACTS = (None, "none", "relu", "prelu", "lrelu", "tanh", "sigmoid")
 
@@ -137,14 +143,17 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.sync = False  # statistics over the process group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             # flax's _compute_stats: float32, E[x²] − E[x]², clipped at 0
             x32 = x.to(torch.float32)
-            mean = x32.mean((0, 2, 3))
-            var = torch.clamp_min(x32.square().mean((0, 2, 3))
-                                  - mean.square(), 0.0)
+            mean, mean_sq = x32.mean((0, 2, 3)), x32.square().mean((0, 2, 3))
+            if self.sync:  # the global batch's: the shards are equal
+                mean, mean_sq = mean_over_replicas(
+                    torch.stack([mean, mean_sq]))
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             if not _STATS_FROZEN.get():
                 m = self.momentum
                 with torch.no_grad():

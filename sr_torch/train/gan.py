@@ -1,6 +1,6 @@
 """SRGAN's adversarial trainer: two Adams, D strictly before G.
 
-Port of ``sr/train/gan.py`` for one device. Two phases (``fit``):
+Port of ``sr/train/gan.py``. Two phases (``fit``):
 generator-only MSE pre-training for ``cfg.pretrain_epochs``, then per step
 
 1. the fake: the generator's train-mode forward on the LR batch, without
@@ -22,10 +22,21 @@ their batches on the device from the G state's generator, so a dispatch
 waits for the host only when its metrics are read. G's step counts both
 phases; D's state saves beside it keyed by G's step, and a run restored
 from both continues exactly.
+
+Over processes (``cfg.mesh_shape``, ``sr_torch/parallel``) each step is
+the global batch's, as the JAX trainer's under GSPMD: every process draws
+the global batch and keeps its ``data`` rows; G and D each run under
+``DistributedDataParallel`` with their batch norms' statistics over the
+group, the D update through D's replica (both passes in one forward), the
+pretrain and G updates through G's; the detached fake and the adversarial
+D pass, which update no parameter of their network, call the modules
+themselves. The frozen VGG needs no replica. The metrics are the global
+batch's means.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable
 
@@ -34,6 +45,8 @@ import torch
 
 from sr_torch.models.registry import ModelSpec, get_spec
 from sr_torch.nn.blocks import frozen_batch_stats
+from sr_torch.parallel.mesh import Mesh, batch_slice, make_mesh, replicate
+from sr_torch.parallel.multihost import global_means
 from sr_torch.train.loop import dispatch_epoch
 from sr_torch.train.losses import bce_with_logits, mse_loss
 from sr_torch.train.state import TrainState
@@ -51,19 +64,25 @@ def _update(state: TrainState, loss: torch.Tensor, params) -> None:
     state.step += 1
 
 
+def _pair(d, real, fake):
+    """D's two passes of its update, real then fake, as one forward."""
+    return d(real), d(fake)
+
+
 class GANTrainer:
-    """Two-phase SRGAN training (pretrain → adversarial) on one device."""
+    """Two-phase SRGAN training (pretrain → adversarial), on one device or
+    data parallel over the processes of ``mesh`` (default:
+    ``cfg.mesh_shape`` over the processes present)."""
 
     def __init__(self, cfg: SRConfig, spec: ModelSpec | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.spec = spec or get_spec(cfg.model_name)
         if not self.spec.is_gan:
             raise ValueError(f"{self.spec.name} is no GAN spec; use Trainer")
-        if tuple(cfg.mesh_shape) not in ((), (1,)):
-            raise NotImplementedError(
-                f"mesh_shape {cfg.mesh_shape}: multi-GPU training lands in a "
-                "later port slice (ROADMAP Queue A 10)")
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh_shape,
+                                                            cfg.mesh_axes)
         self.device = resolve_device(device)
         self.vgg = load_vgg(cfg.vgg_weights_path, cfg.vgg_output_layer)
         if self.vgg is not None:
@@ -75,7 +94,8 @@ class GANTrainer:
         """Fresh G and D states on the trainer's device: weights drawn from
         ``seed`` (flax's initializers; the numbers differ from JAX's), an
         Adam each, step 0, and the sampler's generator in G's state. D is
-        built for the HR crop ``cfg.crop_size``."""
+        built for the HR crop ``cfg.crop_size``. In a process group each
+        state holds its network's DDP replica."""
         g_seed, d_seed, s_seed = np.random.SeedSequence(seed).generate_state(3)
         g = self.spec.make_model(
             self.cfg, torch.Generator().manual_seed(int(g_seed)))
@@ -84,31 +104,35 @@ class GANTrainer:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(s_seed))
         states = []
-        for model, gen in ((g, generator), (d, None)):
+        for model, gen, fn in ((g, generator, None), (d, None, _pair)):
             model = model.to(self.device)
             tx = self.spec.make_tx(self.cfg)
-            states.append(TrainState(model=model,
-                                     optimizer=tx.init(model),
-                                     tx=tx, generator=gen))
+            states.append(TrainState(
+                model=model, optimizer=tx.init(model), tx=tx, generator=gen,
+                replica=(replicate(model, fn) if self.mesh.distributed
+                         else None)))
         return states[0], states[1]
 
     # -- steps -------------------------------------------------------------
 
     def pretrain_step(self, g_state: TrainState, batch: dict
                       ) -> tuple[TrainState, dict]:
-        """One MSE update of G on ``batch`` (in place, and returned)."""
+        """One MSE update of G on the global ``batch`` (in place, and
+        returned)."""
+        batch = batch_slice(batch, self.mesh)
         g = g_state.model
         g.train()
         with torch.enable_grad():
-            loss = mse_loss(g(batch["lr"]), batch["hr"])
+            loss = mse_loss((g_state.replica or g)(batch["lr"]), batch["hr"])
             _update(g_state, loss, list(g.parameters()))
-        return g_state, {"g_content_loss": loss.detach()}
+        return g_state, global_means({"g_content_loss": loss.detach()})
 
     def adversarial_step(self, g_state: TrainState, d_state: TrainState,
                          batch: dict
                          ) -> tuple[TrainState, TrainState, dict]:
-        """One D update, then one G update, on ``batch`` (both states in
-        place, and returned); the metrics are device tensors."""
+        """One D update, then one G update, on the global ``batch`` (both
+        states in place, and returned); the metrics are device tensors."""
+        batch = batch_slice(batch, self.mesh)
         cfg = self.cfg
         g, d = g_state.model, d_state.model
         g.train()
@@ -123,15 +147,16 @@ class GANTrainer:
             fake = g(lr)
         with torch.enable_grad():
             # ---- D update: real, then fake; D's stats advance twice
-            real_logits = d(hr)
-            fake_logits = d(fake)
+            real_logits, fake_logits = (d_state.replica
+                                        or functools.partial(_pair, d))(
+                hr, fake)
             d_loss = (bce_with_logits(real_logits,
                                       torch.ones_like(real_logits))
                       + bce_with_logits(fake_logits,
                                         torch.zeros_like(fake_logits)))
             _update(d_state, d_loss, list(d.parameters()))
             # ---- G update
-            sr = g(lr)
+            sr = (g_state.replica or g)(lr)
             content = mse_loss(sr, hr)
             loss = content
             metrics = {"g_content_loss": content.detach()}
@@ -152,8 +177,8 @@ class GANTrainer:
             metrics["g_adv_loss"] = adv.detach()
             _update(g_state, loss, list(g.parameters()))
         d.train()
-        return g_state, d_state, {"d_loss": d_loss.detach(),
-                                  "g_loss": loss.detach(), **metrics}
+        return g_state, d_state, global_means(
+            {"d_loss": d_loss.detach(), "g_loss": loss.detach(), **metrics})
 
     def make_multi_step(self, pipeline, k: int, phase: str) -> Callable:
         """K steps of one phase in one dispatch, each batch drawn on the

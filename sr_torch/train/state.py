@@ -8,7 +8,10 @@ generator, whose position :class:`sr_torch.utils.checkpoint.Checkpointer`
 saves. A batch-norm model's running statistics are buffers of the model,
 updated by its train-mode forwards and saved with its state dict;
 :attr:`TrainState.batch_stats` reads them in flax's layout. A GAN's
-discriminator state has no sampler (``generator=None``).
+discriminator state has no sampler (``generator=None``). In a
+multi-process run ``replica`` is the model under
+``DistributedDataParallel`` (``sr_torch.parallel.replicate``), which the
+train step calls; checkpoints and inference read ``model`` itself.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ class TrainState:
     tx: Recipe
     generator: torch.Generator | None
     step: int = 0
+    replica: nn.Module | None = None
 
     @property
     def batch_stats(self) -> dict | None:

@@ -1,6 +1,6 @@
 """One shared trainer for the port's models.
 
-Port of ``sr/train/trainer.py`` for one device. A :class:`Trainer` reads a
+Port of ``sr/train/trainer.py``. A :class:`Trainer` reads a
 ``ModelSpec`` (``sr_torch/models/registry.py``) and runs any model (for a
 GAN spec, SRGAN, it trains the generator on the spec's content loss, as
 the JAX ``Trainer`` does; ``sr_torch/train/gan.py`` runs the adversarial
@@ -27,12 +27,23 @@ batch norms (SRResNet) use their running statistics. A train step's forward runs
 train mode: batch norms normalize with the batch's statistics and update
 their running ones, once a step. A recipe's gradient clip (VDSR) reports
 its scale as the ``clip_scale`` metric. Entry points run on
-``device="cuda"`` unless the caller asks for the CPU. Multi-GPU data
-parallelism (``mesh_shape``) lands with Queue A 10.
+``device="cuda"`` unless the caller asks for the CPU.
+
+Data parallelism over processes (``cfg.mesh_shape``, one process per card,
+``sr_torch/parallel``) has the JAX trainer's semantics, a step on the
+global batch: every process draws the same global batch from its
+generator and keeps its rows along the mesh's ``data`` axis (a ``(D, S)``
+mesh of D·S processes splits the batch D ways), the model runs under
+``DistributedDataParallel`` (its gradients, and so VDSR's clip, averaged
+over the group; batch norms' statistics over the global batch), and the
+metrics are the global batch's means. The sampler's generator then stays
+equal on every process, and a checkpoint restores in any number of
+processes.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable
 
@@ -41,6 +52,8 @@ import torch
 
 from sr_torch.kernels.depth_to_space import space_to_depth
 from sr_torch.models.registry import ModelSpec, get_spec
+from sr_torch.parallel.mesh import Mesh, batch_slice, make_mesh, replicate
+from sr_torch.parallel.multihost import global_means
 from sr_torch.train.loop import dispatch_epoch
 from sr_torch.train.state import TrainState
 from sr_torch.utils.config import SRConfig
@@ -48,17 +61,17 @@ from sr_torch.utils.device import resolve_device
 
 
 class Trainer:
-    """Shared train/eval runner for one ModelSpec on one device."""
+    """Shared train/eval runner for one ModelSpec, on one device or data
+    parallel over the processes of ``mesh`` (default: ``cfg.mesh_shape``
+    over the processes present, which it must match)."""
 
     def __init__(self, cfg: SRConfig, spec: ModelSpec | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.spec = spec or get_spec(cfg.model_name)
-        if tuple(cfg.mesh_shape) not in ((), (1,)):
-            raise NotImplementedError(
-                f"mesh_shape {cfg.mesh_shape}: multi-GPU training lands in a "
-                "later port slice (ROADMAP Queue A 10); the port trains on "
-                "one device")
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh_shape,
+                                                            cfg.mesh_axes)
         self.device = resolve_device(device)
         self._in_key = self.spec.input_key()
         # pre-shuffle loss (cfg.preshuffle_loss): the same refusals as the
@@ -93,7 +106,9 @@ class Trainer:
         """A fresh state on the trainer's device: the model's weights drawn
         from ``seed`` (flax's initializers; the numbers differ from JAX's),
         the recipe's optimizer, step 0, and the sampler's generator on the
-        device, seeded from an independent stream of ``seed``."""
+        device, seeded from an independent stream of ``seed``. In a
+        process group, the model's DDP replica too: every process draws
+        the same weights and generator from ``seed``."""
         w_seed, g_seed = np.random.SeedSequence(seed).generate_state(2)
         model = self.spec.make_model(
             self.cfg, torch.Generator().manual_seed(int(w_seed)))
@@ -102,47 +117,62 @@ class Trainer:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(g_seed))
         return TrainState(model=model, optimizer=tx.init(model),
-                          tx=tx, generator=generator)
+                          tx=tx, generator=generator,
+                          replica=(replicate(model, self._output)
+                                   if self.mesh.distributed else None))
 
     def num_params(self, state: TrainState) -> int:
         return sum(p.numel() for p in state.model.parameters())
 
     # -- the step -----------------------------------------------------------
 
-    def loss_fn(self, model, batch: dict, step: int
+    def _output(self, model, x: torch.Tensor):
+        """The train-mode output the loss reads: the model's, or in a
+        pre-shuffle mode its fold's, in pre-shuffle space."""
+        if self._preshuffle == "full":
+            return self.spec.preshuffle_train_full(model)[0](x)
+        if self._preshuffle == "last":
+            return self.spec.preshuffle_train(model)[0](x)
+        return model(x)
+
+    def loss_fn(self, model, batch: dict, step: int, replica=None
                 ) -> tuple[torch.Tensor, dict]:
         """The differentiable loss of ``model`` on ``batch`` at ``step``:
         ``(loss, metrics)``. The model reads the spec's input (``bc`` for a
         pre-upsample model) and its output, a tuple for DRCN in training
         mode, goes to the spec's loss with the schedule context at
         ``step``. In a pre-shuffle mode the output stays in pre-shuffle
-        space and ``hr`` moves there instead."""
+        space and ``hr`` moves there instead. ``replica``: the model's DDP
+        replica, which then computes the output."""
         x = batch[self._in_key]
+        out = (replica or functools.partial(self._output, model))(x)
         if self._preshuffle == "full":
-            apply_fn, target_fn = self.spec.preshuffle_train_full(model)
-            out, batch = apply_fn(x), {**batch, "hr": target_fn(batch["hr"])}
+            target_fn = self.spec.preshuffle_train_full(model)[1]
+            batch = {**batch, "hr": target_fn(batch["hr"])}
         elif self._preshuffle == "last":
-            apply_fn, r_last = self.spec.preshuffle_train(model)
-            out = apply_fn(x)
+            r_last = self.spec.preshuffle_train(model)[1]
             batch = {**batch, "hr": space_to_depth(batch["hr"], r_last)}
-        else:
-            out = model(x)
         return self.spec.loss(out, batch, self.spec.schedule(self.cfg, step))
 
     def train_step(self, state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
-        """One update of ``state`` (in place, and returned) on ``batch``;
-        the metrics are device tensors."""
+        """One update of ``state`` (in place, and returned) on the global
+        ``batch`` (this process's rows of it in a process group); the
+        metrics are device tensors, the global batch's."""
+        batch = batch_slice(batch, self.mesh)
         state.model.train()
         with torch.enable_grad():
-            loss, metrics = self.loss_fn(state.model, batch, state.step)
+            loss, metrics = self.loss_fn(state.model, batch, state.step,
+                                         state.replica)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         clip_scale = state.tx.step(state.optimizer, state.step)
         state.step += 1
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in metrics.items()}}
-        if clip_scale is not None:  # the recipe's gradient clip (VDSR)
+        metrics = global_means(metrics)
+        if clip_scale is not None:  # the recipe's gradient clip (VDSR);
+            # read from the averaged gradients, so already the global one
             metrics["clip_scale"] = clip_scale
         return state, metrics
 

@@ -8,7 +8,12 @@ Port of ``sr/utils/checkpoint.py``.
   ``torch.save`` file per step, written to a temporary name and renamed,
   so a crash never leaves a torn checkpoint. It checks :func:`run_meta` before a resume, with the
   JAX package's keys and refusals. The JAX package's Orbax checkpoints are
-  neither needed nor readable here.
+  neither needed nor readable here. In a process group only the
+  coordinator writes (checkpoints, ``run_meta.json``, the pruning of old
+  steps), through temporary names unique to its process, and every
+  process waits at a barrier after a save; every process restores. A
+  checkpoint holds no topology, so one saved by W processes restores in
+  any number.
 * :func:`save_params`/:func:`load_params` write and read the params-only
   export in the JAX package's ``.npz`` format: one array per leaf of the
   nested params dict, keyed by its path joined with ``/`` under
@@ -28,6 +33,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from sr_torch.parallel.multihost import barrier, is_coordinator
 
 _CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -84,7 +91,9 @@ class Checkpointer:
                     "silently shifts the epoch schedule of a resumed run, "
                     "and a changed topology cannot restore; use a fresh "
                     "save_dir or pass --no_resume.")
-        tmp = path + ".tmp"
+        if not is_coordinator():
+            return
+        tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "w") as f:
             json.dump(meta, f, indent=1)
         os.replace(tmp, path)
@@ -103,19 +112,23 @@ class Checkpointer:
 
     def save(self, state, step: int | None = None) -> int:
         """Save ``state`` at ``state.step`` (or an explicit ``step`` id),
-        then drop all but the newest ``keep`` checkpoints."""
+        then drop all but the newest ``keep`` checkpoints: the
+        coordinator does, and every process of a group then waits for
+        it, so a checkpoint that any process has passed is whole."""
         step = state.step if step is None else int(step)
-        tree = {"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": state.step,
-                "generator": (None if state.generator is None
-                              else state.generator.get_state())}
-        path = self._path(step)
-        tmp = path + f".{os.getpid()}.tmp"
-        torch.save(tree, tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[:-self.keep]:
-            os.remove(self._path(old))
+        if is_coordinator():
+            tree = {"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": state.step,
+                    "generator": (None if state.generator is None
+                                  else state.generator.get_state())}
+            path = self._path(step)
+            tmp = path + f".{os.getpid()}.tmp"
+            torch.save(tree, tmp)
+            os.replace(tmp, path)
+            for old in self.steps()[:-self.keep]:
+                os.remove(self._path(old))
+        barrier()
         return step
 
     def restore(self, like, step: int | None = None):
@@ -151,7 +164,7 @@ def save_params(path: str, params: Any, batch_stats: Any = None) -> None:
     flat = _flatten(params, ("params",))
     if batch_stats is not None:
         flat.update(_flatten(batch_stats, ("batch_stats",)))
-    tmp = path + ".tmp.npz"
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **flat)
     os.replace(tmp, path)
 

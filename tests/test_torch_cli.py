@@ -5,9 +5,11 @@
   field for field (exact equality), over a table of argv that covers every
   reference flag, the TPU-era flags and each model's defaults; the flags
   tuple agrees and adds the device. ``--use_pallas`` is rejected,
-  ``check_args`` refuses what JAX's refuses with its messages, and
-  ``--mesh 2`` and the multihost environment refuse with ROADMAP Queue A
-  10.
+  ``check_args`` refuses what JAX's refuses with its messages; ``--mesh
+  2`` in one process is refused with the launch hint, and the multihost
+  environment (``SR_COORDINATOR``, ``SR_MULTIHOST``) brings the process
+  group up before anything else (``tests/test_torch_parallel_cli.py`` runs
+  the CLI on two processes).
 * ``main`` in process on SRCNN (``--num_epochs 2 --steps_per_epoch 2
   --batch_size 2 --crop_size 32``, f32), one run of each package (module
   fixtures): a run directory with the JAX package's file names (``.pt2``
@@ -148,7 +150,10 @@ def test_check_args_refuses_as_jax(bad, tmp_path):
 
 @pytest.mark.parametrize("model", ["SRCNN", "SRGAN"])
 def test_mesh_refuses_with_queue_a_10(model, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
+    """A mesh of 2 in one process: both trainers refuse it with the launch
+    hint (the name predates multi-process training, which now runs)."""
+    with pytest.raises(ValueError, match="needs 2 processes, 1 present.*"
+                                         "SR_COORDINATOR"):
         port_main.main(["--model_name", model, "--mesh", "2", "--device",
                         "cpu", "--save_dir", str(tmp_path)])
 
@@ -157,9 +162,34 @@ def test_mesh_refuses_with_queue_a_10(model, tmp_path):
                                        ("SR_MULTIHOST", "auto")])
 def test_multihost_environment_refuses_with_queue_a_10(var, value, tmp_path,
                                                        monkeypatch):
+    """The multihost environment now bootstraps, before the arguments are
+    parsed: the JAX-style coordinator through ``tcp://`` with the
+    ``SR_*`` world and rank, ``SR_MULTIHOST=auto`` through the launcher's
+    ``env://``; gloo for ``--device cpu`` (the name predates it)."""
+    import torch.distributed as dist
+
+    calls = []
+
+    def init_process_group(**kw):
+        calls.append(kw)
+        raise _Stop
+
+    monkeypatch.delenv("SR_COORDINATOR", raising=False)
+    monkeypatch.delenv("SR_MULTIHOST", raising=False)
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
+    monkeypatch.setenv("SR_NUM_PROCESSES", "2")
+    monkeypatch.setenv("SR_PROCESS_ID", "1")
+    monkeypatch.setattr(dist, "init_process_group", init_process_group)
+    with pytest.raises(_Stop):
         port_main.main(["--device", "cpu", "--save_dir", str(tmp_path)])
+    (kw,) = calls
+    assert kw["backend"] == "gloo"
+    if var == "SR_COORDINATOR":
+        assert (kw["init_method"], kw["world_size"], kw["rank"]) == (
+            "tcp://localhost:1234", 2, 1)
+    else:
+        assert kw["init_method"] == "env://" and "rank" not in kw
+    assert not os.listdir(tmp_path)  # nothing written before the group
 
 
 class _Stop(Exception):
@@ -169,11 +199,11 @@ class _Stop(Exception):
 def test_main_runs_with_deterministic_cudnn_and_restores_it(monkeypatch):
     seen = []
 
-    def probe():
+    def probe(**kw):
         seen.append(torch.backends.cudnn.deterministic)
         raise _Stop
 
-    monkeypatch.setattr(port_main, "refuse_multihost", probe)
+    monkeypatch.setattr(port_main, "initialize_multihost", probe)
     before = torch.backends.cudnn.deterministic
     with pytest.raises(_Stop):
         port_main.main(["--device", "cpu"])

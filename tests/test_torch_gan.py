@@ -244,7 +244,9 @@ def test_gan_trainer_refusals():
     with pytest.raises(ValueError, match="no GAN spec"):
         GANTrainer(SRConfig(**{**_SMALL, "model_name": "SRResNet"}),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="later port slice"):
+    # a mesh the processes present do not fill: refused with the hint
+    with pytest.raises(ValueError, match="needs 2 processes, 1 present"
+                                         ".*SR_COORDINATOR"):
         GANTrainer(SRConfig(**_SMALL, mesh_shape=(2,)), device="cpu")
     # the shared Trainer takes the GAN spec too: its generator alone
     assert Trainer(SRConfig(**_SMALL), device="cpu").spec.name == "SRGAN"

@@ -206,7 +206,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, sr_torch.infer, sr_torch.serve, sr_torch.export, "
             "sr_torch.eval.ensemble, sr_torch.kernels.ops, sr_torch.main, "
             "sr_torch.compat, sr_torch.eval.panels, sr_torch.utils.logging, "
-            "sr_torch.utils.profiling, sr_torch.utils.refckpt; "
+            "sr_torch.utils.profiling, sr_torch.utils.refckpt, "
+            "sr_torch.parallel, sr_torch.eval.tiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}]; print(bad); sys.exit(bool(bad))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

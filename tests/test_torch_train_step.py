@@ -562,7 +562,9 @@ def test_loss_falls_and_predict_runs_without_grad(corpus):
 
 def test_trainer_refusals():
     cfg = SRConfig(**_SMALL, dtype="float32")
-    with pytest.raises(NotImplementedError, match="later port slice"):
+    # a mesh the processes present do not fill: refused with the hint
+    with pytest.raises(ValueError, match="needs 2 processes, 1 present"
+                                         ".*SR_COORDINATOR"):
         Trainer(cfg.replace(mesh_shape=(2,)), device="cpu")
     spec = get_spec("EDSR")
     none = dataclasses.replace(spec, preshuffle_train=None,
