@@ -16,8 +16,10 @@ Phases; any failure raises and exits non-zero without the final line:
    path's shapes (device time: CUDA events around 20 calls queued behind a
    sleep kernel, so the host's launch overhead stays out; median of 5).
    One wgmma product must match a plain matmul; the int8 conv (raw and
-   fused entries) must equal its plain version exactly, the shuffle too
-   (f32, bf16 and u8, with and without the PS conv's bias).
+   fused entries) must equal its plain version exactly, at EDSR's sites
+   and at each shape class's edges (``INT8_CASES``), the shuffle too
+   (f32, bf16 and u8, with and without the PS conv's bias). Each int8 row
+   prints the class and the plan the kernel chose.
 4. Serve EDSR ×4 (16 resblocks × 64 filters, RGB, seeded random weights
    and nonzero biases saved in the JAX package's .npz format) through
    ``sr_torch.infer.upscale`` and the port's HTTP server: exact and fused
@@ -615,6 +617,24 @@ INT8_SHAPES = (
     ("PS stage 2", 16, 256, 256, 64, 256, 3),
     ("out conv", 16, 512, 512, 64, 3, 3),
     ("fused-quant tail", 16, 128, 128, 64, 48, 7),
+    # no EDSR path at these two: a whole 96x80 image's body conv (the
+    # single-request case) and SRCNN's 9x9 over one channel
+    ("body, one 96x80 image", 1, 96, 80, 64, 64, 3),
+    ("9x9 over one channel", 4, 272, 260, 1, 64, 9),
+)
+
+#: exactness cases of phase 3, (shape, N, k): EDSR's sites at small sizes
+#: with ragged tiles, then each shape class at its edges (C = 1, 3, 8, 12,
+#: 32, 56, 256; k = 1, 9; N = 1, 3, 4; odd W; one whole 96x80 image)
+INT8_CASES = (
+    ((2, 5, 7, 3), 64, 3), ((2, 17, 9, 64), 64, 3), ((2, 17, 9, 64), 256, 3),
+    ((2, 16, 16, 64), 3, 3), ((2, 13, 11, 64), 48, 7),
+    ((1, 37, 53, 1), 64, 9), ((1, 37, 53, 3), 64, 9), ((1, 37, 53, 1), 4, 3),
+    ((1, 37, 53, 8), 16, 3), ((1, 37, 53, 12), 12, 3),
+    ((1, 37, 53, 12), 56, 1),
+    ((1, 37, 53, 32), 1, 5), ((1, 37, 53, 56), 16, 3),
+    ((1, 37, 53, 256), 12, 5), ((2, 37, 53, 64), 3, 9),
+    ((1, 96, 80, 64), 64, 3),
 )
 
 
@@ -668,9 +688,9 @@ def phase_int8_conv(card: str) -> dict:
     load, dequantize and bias on store) bit for bit against its plain
     version, and times at the int8 path's shapes."""
     from sr_torch.kernels.int8_conv import (
-        conv_bf16_im2col, conv_bf16_plain, conv_int8_fused,
-        conv_int8_fused_plain, conv_int8_im2col, conv_int8_plain,
-        pack_weights)
+        conv_bf16_im2col, conv_bf16_plain, conv_class, conv_fits,
+        conv_int8_fused, conv_int8_fused_plain, conv_int8_im2col,
+        conv_int8_plain, pack_weights)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
 
@@ -678,9 +698,7 @@ def phase_int8_conv(card: str) -> dict:
         return torch.randint(-127, 128, shape, device="cuda",
                              generator=gen).to(torch.int8)
 
-    cases = [((2, 5, 7, 3), 64, 3), ((2, 17, 9, 64), 64, 3),
-             ((2, 17, 9, 64), 256, 3), ((2, 16, 16, 64), 3, 3),
-             ((2, 13, 11, 64), 48, 7)]
+    cases = INT8_CASES
     for shape, n, k in cases:
         q_x, q_w = q(shape), q((k, k, shape[-1], n))
         check(torch.equal(conv_int8_im2col(q_x, q_w),
@@ -693,7 +711,9 @@ def phase_int8_conv(card: str) -> dict:
           and int(sat.min()) == -9 * 64 * 127 * 127,
           "int8_conv differs on saturated inputs")
     print(f"[3] int8_conv raw entry == plain on {len(cases) + 1} cases "
-          "(exact, ±127 saturation included)")
+          "(exact, ±127 saturation included; classes: "
+          + ", ".join(f"{shape}->{n} k{k} {conv_class(k, shape[-1])}"
+                      for shape, n, k in cases) + ")")
     n_fused = 0
     for shape, n, k in cases:
         q_w = q((k, k, shape[-1], n))
@@ -720,15 +740,19 @@ def phase_int8_conv(card: str) -> dict:
     print(f"[3] int8_conv fused entry == plain on {n_fused} cases (bit for "
           "bit; per-tensor, per-channel, per-sample and reciprocal scales, "
           ".5 ties, ±127 saturation, with and without bias)")
-    bf_err = 0.0
+    bf_err, refused = 0.0, []
     for shape, n, k in cases:
+        if not conv_fits(k, shape[-1], n, torch.bfloat16):
+            refused.append(f"{shape}->{n} k{k}")  # no path runs it
+            continue
         x = torch.randn(shape, device="cuda", generator=gen).bfloat16()
         w = (torch.randn((k, k, shape[-1], n), device="cuda", generator=gen)
              / (k * k * shape[-1]) ** 0.5).bfloat16()
         bf_err = max(bf_err, float((conv_bf16_im2col(x, w)
                                     - conv_bf16_plain(x, w)).abs().max()))
     print(f"[3] int8_conv bf16 instantiation: max |kernel - plain| "
-          f"{bf_err:.3g} (tol 1e-3)")
+          f"{bf_err:.3g} (tol 1e-3); refused as too large for shared "
+          f"memory (bf16 doubles K): {', '.join(refused) or 'none'}")
     check(bf_err <= 1e-3, "bf16 conv disagrees")
 
     entry = None
@@ -792,11 +816,13 @@ def _int8_row(card: str, gen, name: str, shape, n: int, k: int,
     torch._int_mm on a prebuilt im2col matrix (the GEMM alone) and cuDNN's
     bf16 conv, beside the bound. Returns the kernels-line row."""
     from sr_torch.kernels.int8_conv import (
-        conv_int8_fused, conv_int8_fused_plain, conv_int8_im2col)
+        conv_class, conv_int8_fused, conv_int8_fused_plain, conv_int8_im2col,
+        conv_plan)
 
     b, h, w, c = shape
     (x, q_w, packed, scale, dequant, bias, q_x), err = _int8_exact(
         gen, name, shape, n, k)
+    cls, plan = conv_class(k, c), conv_plan(shape, n, k)
     t_k = kernel_ms(lambda: conv_int8_fused(x, q_w, scale, dequant,
                                             bias, packed=packed))
     t_p = kernel_ms(lambda: conv_int8_fused_plain(x, q_w, scale,
@@ -837,8 +863,8 @@ def _int8_row(card: str, gen, name: str, shape, n: int, k: int,
           f"{t_p:.4f} ms, raw kernel + its former passes {t_f:.4f} ms, "
           f"raw kernel alone {t_raw:.4f} ms (bound {raw_bound:.4f}), "
           f"torch._int_mm on a prebuilt im2col matrix {t_l} ms (GEMM "
-          f"alone), cuDNN bf16 conv {t_c:.4f} ms; max err {err:g} "
-          f"| {card}")
+          f"alone), cuDNN bf16 conv {t_c:.4f} ms; max err {err:g}; class "
+          f"{cls}, plan {plan} | {card}")
     del x
     return dict(
         name="int8_conv", route="cuda",
@@ -847,7 +873,8 @@ def _int8_row(card: str, gen, name: str, shape, n: int, k: int,
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
         bound_by=by, library_ms=t_l, shape=[b, h, w, c, n, k],
         dtype="f32 -> int8 -> f32 (fused entry)", former_ms=t_f,
-        raw_ms=t_raw, raw_bound_ms=raw_bound, cudnn_bf16_ms=t_c)
+        raw_ms=t_raw, raw_bound_ms=raw_bound, cudnn_bf16_ms=t_c,
+        shape_class=cls, plan=plan)
 
 
 def _seeded_edsr(dtype: str):

@@ -387,8 +387,74 @@ fused_resblock.launches = 0
 
 _CONV_CODES = {torch.int8: 0, torch.bfloat16: 1}
 _CONV_OUT = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
-MAX_K = 17  # the largest odd k whose tiles fit one block's shared memory
-_CHUNK_BYTES = 64  # the kernel's K chunk: Cp is a multiple of it
+MAX_K = 17  # the largest odd k the kernel takes (few channels; see below)
+_NCHUNK = 64  # output channels per packed weight chunk, at most
+_TAP_PACK_BYTES = 8  # C·element size at or below: the tap-packed class
+_MAX_SMEM = 232448  # shared memory one block may use on the H100
+
+
+class ConvLayout:
+    """The kernel's shape class and weight packing for one conv:
+    ``tap_packed`` (K holds a whole tap row: few channels), ``taps`` (k·k,
+    or k tap rows), ``ks`` (32-byte K steps a tap), ``kbytes`` (real K
+    bytes a tap), ``kp`` (K elements a tap, zero-padded to ks·32 bytes),
+    ``nch`` (output channels a chunk: 64, or 32, 16, 8 where one chunk
+    would not fit in shared memory), ``nchunks``, ``last_w`` (the last
+    chunk's width, rounded up to wgmma's N), ``numel`` (elements of the
+    packed weights)."""
+
+    __slots__ = ("tap_packed", "taps", "ks", "kbytes", "kp", "nch",
+                 "nchunks", "last_w", "numel")
+
+    def __init__(self, *values):
+        for name, value in zip(self.__slots__, values, strict=True):
+            setattr(self, name, value)
+
+
+def _mma_width(n: int) -> int:
+    """wgmma's N for a chunk of ``n`` output channels."""
+    return next(w for w in (8, 16, 32, 48, 64) if n <= w)
+
+
+_ELEMENT_SIZE = {torch.int8: 1, torch.bfloat16: 2}
+
+
+@functools.cache
+def conv_layout(k: int, c: int, n: int, dtype: torch.dtype) -> ConvLayout:
+    """The shape class and packing of a k×k conv of C→N channels in
+    ``dtype`` (int8 or bfloat16), as ``csrc/int8_conv.cu:packing`` sets
+    them: tap-packed when k > 1 and a pixel's C channels fill at most 8
+    of a K step's 32 bytes, else one K run per tap; chunks of 64 outputs,
+    halved while the kernel's smallest plan would not fit."""
+    es = _ELEMENT_SIZE[dtype]
+    tap_packed = k > 1 and c * es <= _TAP_PACK_BYTES
+    taps = k if tap_packed else k * k
+    kbytes = (k if tap_packed else 1) * c * es
+    ks = -(-kbytes // 32)
+    nch = _NCHUNK
+    while True:
+        nchunks = -(-n // nch)
+        last_w = _mma_width(n - (nchunks - 1) * nch)
+        lay = ConvLayout(tap_packed, taps, ks, kbytes, ks * 32 // es, nch,
+                         nchunks, last_w,
+                         taps * ks * 32 // es * ((nchunks - 1) * nch + last_w))
+        if nch == 8 or _conv_smem_floor(lay, k, c, es) <= _MAX_SMEM:
+            return lay
+        nch //= 2
+
+
+def conv_fits(k: int, c: int, n: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes a k×k conv of C→N channels in ``dtype``:
+    a chunk of its weights and k quantized rows fit in shared memory."""
+    lay = conv_layout(k, c, n, dtype)
+    es = _ELEMENT_SIZE[dtype]
+    return k <= MAX_K and _conv_smem_floor(lay, k, c, es) <= _MAX_SMEM
+
+
+def conv_class(k: int, c: int, dtype: torch.dtype = torch.int8) -> str:
+    """'tap-packed' (class 2, few channels) or 'per-tap' (class 1)."""
+    return ("tap-packed" if conv_layout(k, c, 1, dtype).tap_packed
+            else "per-tap")
 
 
 def check_conv(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
@@ -452,15 +518,51 @@ def conv_int8_fused_plain(x: torch.Tensor, q_w: torch.Tensor,
 
 
 def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``(k, k, C, N)`` → the kernel's ``(k, k, N, Cp)``: each output
-    channel's K run contiguous, as the MMA's B operand is staged, and
-    zero-padded to ``Cp``, a multiple of the kernel's 64-byte K chunk."""
+    """HWIO ``(k, k, C, N)`` → the kernel's resident weights, 1-D.
+
+    K of a tap is its C channels (per-tap class) or, tap-packed, the
+    (dx, c) run of a whole tap row; zero-padded to whole 32-byte K steps.
+    Output channels go in chunks of 64 (the last one zero-padded to
+    wgmma's N); a chunk holds, for each tap and K step, its N × 32 bytes in
+    wgmma's K-major layout with the 32-byte swizzle: row n's 32 bytes at
+    32·n, its two 16-byte K halves swapped in rows with n // 4 odd. See
+    :func:`conv_layout`."""
     k, _, c, n = w.shape
-    per_chunk = _CHUNK_BYTES // w.element_size()
-    cp = -(-c // per_chunk) * per_chunk
-    packed = w.new_zeros((k, k, n, cp))
-    packed[..., :c] = w.permute(0, 1, 3, 2)
-    return packed
+    lay = conv_layout(k, c, n, w.dtype)
+    e = 32 // w.element_size()  # elements a K step
+    full = w.new_zeros((lay.taps, lay.kp,
+                        (lay.nchunks - 1) * lay.nch + lay.last_w))
+    full[:, :lay.kbytes // w.element_size(), :n] = w.reshape(
+        lay.taps, -1, n)
+    chunks = []
+    for i in range(lay.nchunks):
+        nw = lay.nch if i + 1 < lay.nchunks else lay.last_w
+        blk = full[:, :, i * lay.nch:i * lay.nch + nw].reshape(
+            lay.taps, lay.ks, 2, e // 2, nw).permute(0, 1, 4, 2, 3)
+        # (tap, step, row, K half, element); the 32-byte swizzle swaps the
+        # halves of rows 4-7 of every 8
+        swap = torch.arange(nw, device=w.device) // 4 % 2 == 1
+        blk = torch.where(swap[:, None, None], blk.flip(3), blk)
+        chunks.append(blk.reshape(-1))
+    return torch.cat(chunks)
+
+
+def _conv_smem_floor(lay: ConvLayout, k: int, c: int, es: int) -> int:
+    """Shared memory of the kernel's smallest plan (``smem_floor`` in
+    ``csrc/int8_conv.cu``): one MMA warpgroup, one staging stage of one
+    pixel (a whole row when tap-packed) at 4 bytes an element, k quantized
+    rows, one chunk of weights a block, and their barriers."""
+    def up(a, b):
+        return -(-a // b) * b
+
+    w = lay.taps * lay.ks * 32 * (lay.nch if lay.nchunks > 1
+                                  else lay.last_w)
+    p = 64 + k - 1
+    ring_row = up((64 if lay.tap_packed else p) * lay.ks * 32, 256)
+    tab = up((2 * up(c, 4) + 2 * lay.nch) * 4, 16)
+    stage = up((p if lay.tap_packed else 1) * c * 4 + 32, 128)
+    return (up(w, 256) + k * ring_row + stage + tab
+            + 8 * (3 + 2 * k) + 1024)
 
 
 @functools.cache
@@ -475,13 +577,36 @@ def _conv_lib():
                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fused.restype = ctypes.c_int
+    lib.sr_conv_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.sr_conv_plan.restype = ctypes.c_int
     return lib, raw, fused
 
 
+_PLAN_KEYS = ("tap_packed", "ks", "warpgroups", "stages", "piece_px",
+              "ring_rows", "nslices", "band_rows", "items", "smem", "blocks",
+              "blocks_per_sm")
+
+
+def conv_plan(shape, n: int, k: int, fused: bool = True,
+              dtype: torch.dtype = torch.int8) -> dict:
+    """The plan the CUDA kernel takes for x of ``shape`` (B, H, W, C) → N
+    outputs, k×k: the fused entry, or the raw one in ``dtype``. Needs the
+    card (it asks the device for its SMs and the kernel's occupancy)."""
+    b, h, w, c = shape
+    lib, _, _ = _conv_lib()
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    code = 2 if fused else _CONV_CODES[dtype]
+    _build.check(lib, lib.sr_conv_plan(b, h, w, c, n, k, code, out),
+                 "int8_conv plan")
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["tap_packed"] = bool(plan["tap_packed"])
+    return plan
+
+
 def _check_conv_launch(x: torch.Tensor, w: torch.Tensor,
-                       packed: torch.Tensor | None) -> None:
+                       packed: torch.Tensor | None) -> ConvLayout:
     """Validate a CUDA launch of ``x`` against HWIO ``w`` and its
-    :func:`pack_conv_weights` layout ``packed``."""
+    :func:`pack_conv_weights` layout ``packed``; return the layout."""
     k = w.shape[0]
     if k > MAX_K:
         raise ValueError(f"conv kernel takes k <= {MAX_K}, got {k}")
@@ -495,18 +620,27 @@ def _check_conv_launch(x: torch.Tensor, w: torch.Tensor,
     if packed is None:
         raise ValueError("the conv kernel takes its weights packed once by "
                          "the caller: pass packed=pack_weights(q_w)")
-    per_chunk = _CHUNK_BYTES // w.element_size()
-    if (packed.shape[:3] != (k, k, n) or packed.shape[3] < c
-            or packed.shape[3] % per_chunk or packed.dtype != w.dtype
-            or packed.device != x.device or not packed.is_contiguous()):
+    lay = conv_layout(k, c, n, w.dtype)
+    if (packed.shape != (lay.numel,) or packed.dtype != w.dtype
+            or packed.device != x.device or not packed.is_contiguous()
+            or packed.data_ptr() % 16):
         raise ValueError(f"packed weights {tuple(packed.shape)} "
                          f"{packed.dtype} do not fit HWIO "
                          f"{tuple(w.shape)}; use pack_weights")
+    need = _conv_smem_floor(lay, k, c, w.element_size())
+    if need > _MAX_SMEM:
+        raise ValueError(
+            f"conv kernel keeps a chunk of 8 or more output channels of its "
+            f"weights resident in shared memory: k={k}, C={c} "
+            f"({conv_class(k, c, w.dtype)}) needs {need} bytes, more than "
+            f"the {_MAX_SMEM} a block has (no conv of the port is that "
+            f"large)")
+    return lay
 
 
 def _raw_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     packed = pack_conv_weights(w)
-    _check_conv_launch(x, w, packed)
+    lay = _check_conv_launch(x, w, packed)
     b, h, wd, c = x.shape
     k, n = w.shape[0], w.shape[-1]
     out = torch.empty((b, h, wd, n), dtype=_CONV_OUT[x.dtype],
@@ -514,7 +648,7 @@ def _raw_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib, raw, _ = _conv_lib()
     with torch.cuda.device(x.device):
         err = raw(x.data_ptr(), packed.data_ptr(), out.data_ptr(), b, h, wd,
-                  c, packed.shape[3], n, k, _CONV_CODES[x.dtype], _stream())
+                  c, lay.kp, n, k, _CONV_CODES[x.dtype], _stream())
     _build.check(lib, err, "int8_conv")
     return out
 
@@ -604,7 +738,7 @@ def _fused_op(x: torch.Tensor, q_w: torch.Tensor, scale: torch.Tensor,
 def _fused_cuda(x, q_w, scale, dequant, bias, reciprocal, packed):
     b, h, wd, c = x.shape
     k, n = q_w.shape[0], q_w.shape[-1]
-    _check_conv_launch(x, q_w, packed)
+    lay = _check_conv_launch(x, q_w, packed)
     sb, sc = _scale_strides(scale, b, c)
     if dequant.numel() not in (n, b * n) or dequant.shape[-1] != n:
         raise ValueError(f"dequant of shape {tuple(dequant.shape)}: want "
@@ -628,7 +762,7 @@ def _fused_cuda(x, q_w, scale, dequant, bias, reciprocal, packed):
                     None if divisor is None else divisor.data_ptr(), sb, sc,
                     dequant.data_ptr(), dq_sb,
                     None if bias is None else bias.data_ptr(),
-                    b, h, wd, c, packed.shape[3], n, k, _stream())
+                    b, h, wd, c, lay.kp, n, k, _stream())
     _build.check(lib, err, "int8_conv")
     conv_int8_fused.launches += 1
     return out

@@ -214,6 +214,18 @@ def test_fused_resblock_kernel_rejects_unsupported(cuda):
     (2, 13, 11, 64, 48, 7),  # the fused-quant tail's composite conv
     (1, 9, 20, 3, 3, 5),     # C=3 and N=3 together, k=5
     (1, 6, 6, 40, 10, 1),    # k=1, C not a whole chunk
+    # each shape class at its edges, odd W (37x53); tap-packed: C <= 8
+    (1, 37, 53, 1, 64, 9),   # SRCNN's 9x9 over one channel
+    (1, 37, 53, 3, 64, 9),   # SRResNet's 9x9 head over three
+    (1, 37, 53, 1, 4, 3),    # N=4, LapSRN's image deconv
+    (1, 37, 53, 8, 16, 3),   # C=8: the last tap-packed C, one K step
+    (1, 37, 53, 12, 12, 3),  # C=12: per tap
+    (1, 37, 53, 12, 56, 1),  # k=1 is per tap at any C
+    (1, 37, 53, 32, 1, 5),   # N=1
+    (1, 37, 53, 56, 16, 3),
+    (1, 37, 53, 256, 12, 5),  # C=256: eight K steps a tap
+    (2, 37, 53, 64, 3, 9),
+    (1, 96, 80, 64, 64, 3),  # one whole 96x80 image
 ])
 def test_int8_conv_kernel_matches_plain(cuda, b, h, w, c, n, k):
     """Exact: int32 accumulation of int8 products."""
@@ -330,6 +342,36 @@ def test_int8_fused_kernel_matches_plain(cuda, mode, c, n, k):
         want = conv_int8_fused_plain(x, q_w, scale, dequant, bias_)
         assert got.dtype == torch.float32 and got.shape == (2, 11, 37, n)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,n,k", [
+    (1, 37, 53, 1, 64, 9), (1, 37, 53, 3, 64, 9), (1, 37, 53, 1, 4, 3),
+    (1, 37, 53, 8, 16, 3), (1, 37, 53, 12, 12, 3), (1, 37, 53, 12, 56, 1),
+    (1, 37, 53, 32, 1, 5),
+    (1, 37, 53, 56, 16, 3), (1, 37, 53, 256, 12, 5), (2, 37, 53, 64, 3, 9),
+    (1, 96, 80, 64, 64, 3),
+])
+def test_int8_fused_kernel_class_edges_match_plain(cuda, b, h, w, c, n, k):
+    """Bit for bit at each shape class's edges: per-tensor, per-channel
+    and per-sample scales with and without a bias, and a per-channel
+    reciprocal scale."""
+    gen = torch.Generator(device=cuda).manual_seed(b + h + c + n + k)
+    for mode in ("per_tensor", "per_channel", "dynamic"):
+        x, q_w, scale, dequant = _fused_operands(gen, b, h, w, c, n, k, mode,
+                                                 cuda)
+        packed = pack_weights(q_w)
+        bias = torch.randn(n, device=cuda, generator=gen)
+        for bias_ in (bias, None):
+            got = conv_int8_fused(x, q_w, scale, dequant, bias_,
+                                  packed=packed)
+            assert torch.equal(got, conv_int8_fused_plain(
+                x, q_w, scale, dequant, bias_))
+    inv = 1.0 / (torch.rand(c, device=cuda, generator=gen) * 0.05 + 0.01)
+    got = conv_int8_fused(x, q_w, inv, dequant, bias, reciprocal=True,
+                          packed=packed)
+    assert torch.equal(got, conv_int8_fused_plain(x, q_w, inv, dequant, bias,
+                                                  reciprocal=True))
 
 
 @pytest.mark.cuda

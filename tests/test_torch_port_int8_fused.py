@@ -109,19 +109,34 @@ def test_int8_conv_through_fused_entry_equals_jax(mode, bias, c, n, k):
 
 
 def test_pack_weights_layout():
-    """(k, k, C, N) → (k, k, N, Cp): C padded with zeros to a 64-byte
-    chunk (64 int8, 32 bf16), each output channel's K run contiguous."""
+    """(k, k, C, N) → the kernel's resident 1-D layout: chunks of 64
+    outputs, each (tap, 32-byte K step) block in wgmma's K-major layout
+    with the 32-byte swizzle (row n at 32·n, its 16-byte K halves swapped
+    where n // 4 is odd), zero past C and past N. C=3 at k=3 is
+    tap-packed: one K run of the tap row's 3 pixels × 3 channels."""
     rng = np.random.default_rng(1)
     w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 3, 5))
                          .astype(np.int8))
     p = pack_weights(w)
-    assert p.shape == (3, 3, 5, 64) and p.is_contiguous()
-    assert torch.equal(p[..., :3], w.permute(0, 1, 3, 2))
-    assert not p[..., 3:].any()
-    wb = torch.randn((7, 7, 40, 6)).to(torch.bfloat16)
-    pb = pack_weights(wb)
-    assert pb.shape == (7, 7, 6, 64)
-    assert torch.equal(pb[..., :40], wb.permute(0, 1, 3, 2))
+    # 3 tap rows × 1 K step × 8 rows (N=5 → wgmma's n8) × 32 bytes
+    assert p.shape == (3 * 8 * 32,) and p.is_contiguous()
+    blk = p.view(3, 8, 2, 16)  # (tap row, n, stored half, byte)
+    for dy in range(3):
+        for n in range(5):
+            h0 = n // 4 % 2  # where the first K half is stored
+            run = torch.cat([blk[dy, n, h0], blk[dy, n, 1 - h0]])
+            assert torch.equal(run[:9], w[dy, :, :, n].reshape(9))
+            assert not run[9:].any()
+    assert not blk[:, 5:].any()
+    # per tap (C=64): tap 1's second K step, outputs 9 and 13
+    wb = torch.randn((3, 3, 64, 70)).to(torch.bfloat16)
+    pb = pack_weights(wb)  # chunks of 64 and 8 outputs; 4 K steps a tap
+    assert pb.shape == (9 * 4 * 64 * 16 + 9 * 4 * 8 * 16,)
+    step = pb[(1 * 4 + 1) * 64 * 16:(1 * 4 + 2) * 64 * 16].view(64, 2, 8)
+    assert torch.equal(torch.cat([step[9, 0], step[9, 1]]),
+                       wb[0, 1, 16:32, 9])
+    assert torch.equal(torch.cat([step[13, 1], step[13, 0]]),  # swapped
+                       wb[0, 1, 16:32, 13])
 
 
 def test_fused_entry_refuses_bad_operands():
