@@ -22,6 +22,8 @@ import math
 import torch
 import torch.distributed as dist
 
+from sr_torch.utils.profiling import count
+
 #: conservative per-model LR-space receptive-field half-widths
 RECEPTIVE_FIELD = {
     "srcnn": 8,       # (9+5+5-3)//2
@@ -60,7 +62,10 @@ def tiled_predict(predict_fn, x: torch.Tensor, scale_factor: int,
     r = scale_factor
     win_h = min(tile + 2 * halo, h)
     win_w = min(tile + 2 * halo, w)
+    count("tiling.image_px", h * w)
     if h <= win_h and w <= win_w:
+        count("tiling.calls")
+        count("tiling.window_px", h * w)
         return predict_fn(x)
 
     ny, nx = math.ceil(h / tile), math.ceil(w / tile)
@@ -79,6 +84,9 @@ def tiled_predict(predict_fn, x: torch.Tensor, scale_factor: int,
     n = len(slices)
     chunk = (max_tiles_per_call if fixed_chunk
              else max(1, min(max_tiles_per_call, n)))
+    calls = math.ceil(n / chunk)
+    count("tiling.calls", calls)
+    count("tiling.window_px", calls * chunk * win_h * win_w)
     outs = []
     for start in range(0, n, chunk):
         group = slices[start:start + chunk]

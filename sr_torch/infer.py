@@ -51,6 +51,7 @@ from sr_torch.utils.checkpoint import load_params
 from sr_torch.utils.config import SRConfig
 from sr_torch.utils.device import resolve_device
 from sr_torch.utils.interop import from_jax_params
+from sr_torch.utils.profiling import span
 
 
 def tail_kind(model) -> str | None:
@@ -83,7 +84,9 @@ def make_serving_predict(model, fused: bool, quantize: bool | str = False,
     takes and returns NHWC tensors on the model's device. Every route
     serves the model in eval mode (batch norms on their running
     statistics, as ``train=False`` in the JAX package), so this puts
-    ``model`` in eval mode."""
+    ``model`` in eval mode. Each call of the returned function runs inside
+    a ``sr_torch::route.forward`` span (``sr_torch.utils.profiling.span``),
+    whatever the route."""
     model.eval()
     kind = tail_kind(model) if fused else None
     if quantize:
@@ -95,15 +98,30 @@ def make_serving_predict(model, fused: bool, quantize: bool | str = False,
         kw = dict(calib_headroom=calib_headroom, output_u8=output_u8,
                   calib_batches=calib_batches)
         if mode == "static" and kind == "affine":
-            return make_fused_tail_predict_quant(model, **kw)
-        if mode == "static" and kind == "folded":
-            return make_folded_tail_predict_quant(model, **kw)
-        return make_quantized_predict(model, mode, **kw)
-    fn = {"affine": make_fused_tail_predict,
-          "folded": make_folded_tail_predict}.get(kind, lambda m: m)(model)
-    if output_u8:
-        return lambda x: to_u8(fn(x))
-    return fn
+            fn = make_fused_tail_predict_quant(model, **kw)
+        elif mode == "static" and kind == "folded":
+            fn = make_folded_tail_predict_quant(model, **kw)
+        else:
+            fn = make_quantized_predict(model, mode, **kw)
+    else:
+        base = {"affine": make_fused_tail_predict,
+                "folded": make_folded_tail_predict}.get(
+                    kind, lambda m: m)(model)
+        fn = (lambda x: to_u8(base(x))) if output_u8 else base
+    return _route_span(fn)
+
+
+def _route_span(fn):
+    """``fn`` run inside a ``sr_torch::route.forward`` span, one a call of
+    the served route; a static int8 route keeps its ``calibrate``."""
+
+    def forward(x):
+        with span("sr_torch::route.forward"):
+            return fn(x)
+
+    if hasattr(fn, "calibrate"):
+        forward.calibrate = fn.calibrate
+    return forward
 
 
 def make_pyramid_level_predict(model, spec, trained_scale: int,
@@ -222,70 +240,88 @@ def upscale(
     static int8 predict then calibrates on all 8 variants of the image (of
     a tile-sized centre crop when the image is tiled). ``device`` defaults
     to the card; pass ``"cpu"`` for the plain PyTorch versions of the
-    kernels.
+    kernels. Under a profiler the call is a ``sr_torch::upscale`` span with
+    a child span a step: ``.pre`` (the model's lookup, colour conversion,
+    bicubic, H2D), ``.forward``, ``.fetch`` (the copy back), ``.post``.
     """
-    device = resolve_device(device)
-    # with net_scale the model builds at its trained scale and the
-    # predict serves the level of the requested one; ensemble members
-    # stay float (the wrapper quantizes once)
-    spec, channels, fn = _load(model_name, params_path,
-                               os.path.getmtime(params_path),
-                               net_scale or scale_factor, num_channels,
-                               dtype, fused, quantize,
-                               output_u8 and not self_ensemble,
-                               calib_headroom, device,
-                               scale_factor if net_scale else None)
-    base_fn = fn
-    if self_ensemble:
-        fn = make_self_ensemble_predict(fn, output_u8=output_u8)
-    if img.ndim == 2:
-        img = img[:, :, None]
-    r = scale_factor
-    h, w = img.shape[:2]
-    # a 1-channel model works on luma: RGB input goes to YCbCr first,
-    # rounded to u8 as the JAX package rounds it
-    to_rgb_out = channels == 1 and img.shape[-1] == 3 and color_space == "rgb"
-    if to_rgb_out:
-        img = _to_u8(rgb_to_ycbcr(img.astype(np.float32)).numpy())
-    chroma = channels == 1 and img.shape[-1] == 3
-    # one full-image bicubic upscale serves a pre-upsample model's input
-    # and the chroma merge
-    bc_full = (resize_bicubic_u8(img, (h * r, w * r))
-               if spec.pre_upsample or chroma else None)
-    # the network's output/input size ratio: 1 for a pre-upsample net
-    model_in, out_factor = (bc_full, 1) if spec.pre_upsample else (img, r)
-    if channels == 1:
-        net_in = model_in[..., :1]
-    else:
-        net_in = (model_in if model_in.shape[-1] == 3
-                  else np.repeat(model_in, 3, axis=2))
-    x = torch.from_numpy(net_in.astype(np.float32)[None] / 255.0).to(device)
-    tiled = tile is not None and max(x.shape[1], x.shape[2]) > tile
-    if self_ensemble and hasattr(base_fn, "calibrate"):
-        # static int8: the first-call calibration would see the identity
-        # member only, and the others' ranges can exceed it. Calibrate on
-        # all 8 D4 variants up front (a no-op once the cached predict is
-        # calibrated), of a tile-sized centre crop when tiled
-        cal = x
-        if tiled:
-            ch, cw = min(tile, x.shape[1]), min(tile, x.shape[2])
-            top, left = (x.shape[1] - ch) // 2, (x.shape[2] - cw) // 2
-            cal = x[:, top:top + ch, left:left + cw]
-        base_fn.calibrate([transform(cal, f, k) for f, k in TRANSFORMS])
-    halo = RECEPTIVE_FIELD.get(model_name.lower(), 48)
-    with torch.inference_mode():
-        if tiled:
-            out = tiled_predict(fn, x, out_factor, tile=tile, halo=halo)
-        else:
-            out = fn(x)
-        out = out[0].cpu()
-    if out.dtype == torch.uint8:  # device already quantized (output_u8)
-        sr_u8 = out.numpy()
-    else:
-        sr_u8 = _to_u8(out.float().numpy() * 255.0)
-    if chroma:
-        # the model's luma with the full-image bicubic upscale's chroma
-        sr_u8 = np.concatenate([sr_u8[..., :1], bc_full[..., 1:]], axis=-1)
-    if to_rgb_out:
-        sr_u8 = _to_u8(ycbcr_to_rgb(sr_u8.astype(np.float32)).numpy())
+    with span("sr_torch::upscale"):
+        with span("sr_torch::upscale.pre"):
+            device = resolve_device(device)
+            # with net_scale the model builds at its trained scale and the
+            # predict serves the level of the requested one; ensemble
+            # members stay float (the wrapper quantizes once)
+            spec, channels, fn = _load(model_name, params_path,
+                                       os.path.getmtime(params_path),
+                                       net_scale or scale_factor,
+                                       num_channels, dtype, fused, quantize,
+                                       output_u8 and not self_ensemble,
+                                       calib_headroom, device,
+                                       scale_factor if net_scale else None)
+            base_fn = fn
+            if self_ensemble:
+                fn = make_self_ensemble_predict(fn, output_u8=output_u8)
+            if img.ndim == 2:
+                img = img[:, :, None]
+            r = scale_factor
+            h, w = img.shape[:2]
+            # a 1-channel model works on luma: RGB input goes to YCbCr
+            # first, rounded to u8 as the JAX package rounds it
+            to_rgb_out = (channels == 1 and img.shape[-1] == 3
+                          and color_space == "rgb")
+            if to_rgb_out:
+                img = _to_u8(rgb_to_ycbcr(img.astype(np.float32)).numpy())
+            chroma = channels == 1 and img.shape[-1] == 3
+            # one full-image bicubic upscale serves a pre-upsample model's
+            # input and the chroma merge
+            bc_full = (resize_bicubic_u8(img, (h * r, w * r))
+                       if spec.pre_upsample or chroma else None)
+            # the network's output/input size ratio: 1 for a pre-upsample
+            # net
+            model_in, out_factor = ((bc_full, 1) if spec.pre_upsample
+                                    else (img, r))
+            if channels == 1:
+                net_in = model_in[..., :1]
+            else:
+                net_in = (model_in if model_in.shape[-1] == 3
+                          else np.repeat(model_in, 3, axis=2))
+            x = torch.from_numpy(net_in.astype(np.float32)[None]
+                                 / 255.0).to(device)
+            tiled = tile is not None and max(x.shape[1], x.shape[2]) > tile
+            if self_ensemble and hasattr(base_fn, "calibrate"):
+                # static int8: the first-call calibration would see the
+                # identity member only, and the others' ranges can exceed
+                # it. Calibrate on all 8 D4 variants up front (a no-op
+                # once the cached predict is calibrated), of a tile-sized
+                # centre crop when tiled
+                cal = x
+                if tiled:
+                    ch, cw = min(tile, x.shape[1]), min(tile, x.shape[2])
+                    top = (x.shape[1] - ch) // 2
+                    left = (x.shape[2] - cw) // 2
+                    cal = x[:, top:top + ch, left:left + cw]
+                base_fn.calibrate([transform(cal, f, k)
+                                   for f, k in TRANSFORMS])
+            halo = RECEPTIVE_FIELD.get(model_name.lower(), 48)
+        with torch.inference_mode():
+            with span("sr_torch::upscale.forward"):
+                if tiled:
+                    out = tiled_predict(fn, x, out_factor, tile=tile,
+                                        halo=halo)
+                else:
+                    out = fn(x)
+            with span("sr_torch::upscale.fetch"):
+                out = out[0].cpu()
+        with span("sr_torch::upscale.post"):
+            if out.dtype == torch.uint8:  # already quantized (output_u8)
+                sr_u8 = out.numpy()
+            else:
+                sr_u8 = _to_u8(out.float().numpy() * 255.0)
+            if chroma:
+                # the model's luma with the full-image bicubic upscale's
+                # chroma
+                sr_u8 = np.concatenate([sr_u8[..., :1], bc_full[..., 1:]],
+                                       axis=-1)
+            if to_rgb_out:
+                sr_u8 = _to_u8(ycbcr_to_rgb(sr_u8.astype(np.float32))
+                               .numpy())
     return sr_u8

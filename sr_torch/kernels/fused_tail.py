@@ -29,9 +29,10 @@ from sr_torch.kernels.depth_to_space import depth_to_space, space_to_depth
 from sr_torch.kernels.int8_conv import conv_int8_fused, pack_weights
 from sr_torch.nn.intercept import intercept_convs, site_keys
 from sr_torch.quant import (
-    _EPS, _run_sites, _sites, calibrate_scales_batches, calibrated_once,
-    to_u8)
+    _EPS, SITE_SPAN, _run_sites, _sites, calibrate_scales_batches,
+    calibrated_once, to_u8)
 from sr_torch.utils.precision import no_tf32
+from sr_torch.utils.profiling import span
 
 
 def extract_affine_conv(tail_fn, in_channels: int, scale_factor: int,
@@ -221,10 +222,11 @@ def make_fused_tail_predict_quant(model, support: int = 7,
         def fn(x):
             h = _run_sites(model, sites, x, "body")
             with torch.inference_mode():
-                # the JAX package multiplies by 1/s_h here, not divides
-                z = conv_int8_fused(h.to(torch.float32).contiguous(), qK,
-                                    inv_s_h, s_out, b_t, reciprocal=True,
-                                    packed=packed)
+                with span(SITE_SPAN):
+                    # the JAX package multiplies by 1/s_h here, not divides
+                    z = conv_int8_fused(h.to(torch.float32).contiguous(),
+                                        qK, inv_s_h, s_out, b_t,
+                                        reciprocal=True, packed=packed)
                 if output_u8:
                     return depth_to_space(to_u8(z), r)
                 return depth_to_space(z.to(h.dtype), r)

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from sr_torch.kernels.depth_to_space import depth_to_space
+from sr_torch.utils.profiling import span
 
 
 def _fold_geometry(k: int, r: int, padding: int | None) -> tuple[int, int, int]:
@@ -221,8 +222,8 @@ def make_folded_tail_predict_quant(model, calib_headroom: float = 1.0,
     runs before the last shuffle, which then moves uint8.
     """
     from sr_torch.quant import (
-        _Int8Site, _sites, calibrate_scales_batches, calibrated_once,
-        int8_sites, to_u8)
+        SITE_SPAN, _Int8Site, _sites, calibrate_scales_batches,
+        calibrated_once, int8_sites, to_u8)
 
     stages, r_last, oc, oc_site = _tail_parts(model)
     wf, bf, pad = _folded_out_conv(oc, r_last)
@@ -249,7 +250,8 @@ def make_folded_tail_predict_quant(model, calib_headroom: float = 1.0,
                 # the last stage stays before its shuffle (its PReLU
                 # commutes with it); the output conv is folded through it
                 a = stages[-1].preshuffle(h).permute(0, 2, 3, 1)
-            z = folded.nhwc(a.to(torch.float32).contiguous())
+            with span(SITE_SPAN):
+                z = folded.nhwc(a.to(torch.float32).contiguous())
             # to_u8 is elementwise and the shuffle a permutation: round
             # before it, so the shuffle moves uint8
             return depth_to_space(to_u8(z) if output_u8 else z, r_last)

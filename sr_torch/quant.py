@@ -64,9 +64,13 @@ from sr_torch.kernels.depth_to_space import depth_to_space
 from sr_torch.kernels.int8_conv import conv_int8_fused, pack_weights
 from sr_torch.nn.blocks import deconv_padding
 from sr_torch.nn.intercept import intercept_convs, recurrent_convs, site_keys
+from sr_torch.utils.profiling import span
 
 _EPS = 1e-12
 _LATER = "lands in a later port slice"
+#: the span around one int8 conv site's call: its layout and dtype casts,
+#: the scale and the fused operator
+SITE_SPAN = "sr_torch::int8.site"
 
 
 def to_u8(y: torch.Tensor) -> torch.Tensor:
@@ -266,9 +270,11 @@ class _Int8Site:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW-logical ``x`` (channels_last memory) → the conv's output
-        in ``x``'s dtype, laid out the same way."""
-        xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
-        return self.nhwc(xh).to(x.dtype).permute(0, 3, 1, 2)
+        in ``x``'s dtype, laid out the same way; a ``sr_torch::int8.site``
+        span under a profiler."""
+        with span(SITE_SPAN):
+            xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
+            return self.nhwc(xh).to(x.dtype).permute(0, 3, 1, 2)
 
 
 class _Int8DeconvSite:
@@ -283,9 +289,10 @@ class _Int8DeconvSite:
                               static_scale, phases=self.stride)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
-        y = depth_to_space(self.site.nhwc(xh), self.stride)
-        return y.to(x.dtype).permute(0, 3, 1, 2)
+        with span(SITE_SPAN):
+            xh = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()  # NHWC
+            y = depth_to_space(self.site.nhwc(xh), self.stride)
+            return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
 def int8_conv(x: torch.Tensor, conv: nn.Conv2d,

@@ -15,16 +15,60 @@ Port of ``sr/utils/profiling.py``:
 * :class:`StepTimer`: steps/s and megapixels/s over a window of steps,
   synced through a scalar the caller hands it;
 * :func:`enable_nan_debugging`: ``torch.autograd.set_detect_anomaly``, so
-  the backward of the op that made a NaN raises with its forward's trace.
+  the backward of the op that made a NaN raises with its forward's trace;
+* :func:`span`, :func:`count` and :func:`counters`: the program's own
+  spans and counters (the port's addition). Serving opens a span at each
+  layer boundary (``sr_torch::upscale`` and its steps ``.pre``,
+  ``.forward``, ``.fetch``, ``.post``; ``sr_torch::route.forward`` around
+  the served route; ``sr_torch::int8.site`` around each int8 conv site),
+  and ``tiled_predict`` counts LR pixels asked and run
+  (``tiling.image_px``, ``tiling.window_px``) and its forward calls
+  (``tiling.calls``). Spans record only under a profiler, :func:`trace`
+  included, which writes them into its Chrome trace; counters always
+  count.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+_COUNTS: dict[str, int] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def span(name: str):
+    """``with span("sr_torch::upscale.pre"): ...``: a host range named
+    ``name`` in the profiler's trace, on the clock of the device's
+    activity, while a ``torch.profiler`` records; else a shared no-op
+    context, so a span costs one attribute read and a branch when tracing
+    is off (an unconditional ``record_function`` costs microseconds even
+    with no profiler). Name spans ``sr_torch::<layer>.<step>``, never
+    after an operator registered under ``torch.ops.sr_torch``: trace
+    readers pair those operators' calls with their kernels by name."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process's counter ``name``. Counters always count,
+    for the life of the process: call at a layer boundary, not per
+    element."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A snapshot of every counter: ``{name: total}``."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 @contextlib.contextmanager
@@ -81,6 +125,8 @@ def op_profile(fn, *args, iters: int = 3, log_dir: str | None = None):
     cnt = collections.Counter()
     programs = []
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            continue  # a span (:func:`span`) encloses ops but is none
         if e.key.startswith("sr_torch::"):
             programs.append({
                 "name": e.key,
